@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (matrix_eyes_tpu_torch) on one NVIDIA H100 and check it.
+
+Run from the root of a checkout, on a machine with the card:
+
+    python3 chip_smoke.py
+
+Phases, each a plain call whose failure ends the run with a non-zero exit:
+
+1. environment: versions, the card, its power limit, host encoders;
+2. build both CUDA kernels from matrix_eyes_tpu_torch/csrc/;
+3. each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it, with errors and warm times;
+4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
+   photo at full DEPTH_PRO width (seeded random weights, bf16): launch
+   counts, finite inverse depth, a 4032x3024 PNG;
+5. the port on the card against the port on the CPU (plain versions) at
+   MID, f32.
+
+The last lines are the kernels' summary (JSON), the card's name and power
+limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``. The
+run fails without CUDA, and outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import struct
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")  # git-ignored
+
+# f32: the kernels sum in another order than cuBLAS/cuDNN (an online
+# softmax; K = 9 * Cin products), so agreement is to rounding, not bits.
+F32_RTOL, F32_ATOL = 1e-4, 1e-5
+# bf16: both sides round to bf16 at different points (the plain versions
+# round the conv before the residual adds and the probabilities before
+# P V), so the bound is relative to the output's scale.
+BF16_REL = 2e-2
+# end to end at MID f32 (plain versions on the CPU vs kernels on the card):
+# the same per-op rounding differences, carried through every stage.
+E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
+
+ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
+    (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
+    (35, 577, 16, 64, "f32", None),    # patch ViT under --dtype f32
+    (1, 577, 16, 64, "f32", None),     # FOV ViT (f32 under every dtype)
+    (1, 577, 16, 64, "bf16", 500),     # keys past n_valid masked
+    (3, 70, 2, 8, "f32", None),        # TINY heads, ragged N
+    (35, 65, 4, 32, "f32", None),      # MID heads
+    (2, 130, 4, 32, "bf16", 100),      # MID heads, ragged N, masked
+]
+CONV_SHAPES = [  # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias)
+    (1, 768, 768, 256, 256, "bf16", True, 2, True),   # fused RCU, the hot shape
+    (1, 768, 768, 129, 128, "bf16", False, 0, True),  # head's composed conv
+    (1, 768, 768, 256, 128, "bf16", False, 0, True),  # head conv0
+    (1, 48, 48, 1024, 256, "bf16", False, 0, False),  # decoder projection
+    (1, 96, 96, 256, 256, "f32", True, 2, True),      # RCU under --dtype f32
+    (2, 7, 9, 8, 4, "f32", True, 1, True),            # TINY channels, odd sizes
+    (1, 5, 3, 129, 128, "f32", False, 0, True),       # 129 channels, tiny grid
+]
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(got, ref, dtype) -> dict:
+    """Errors of got against ref (max_rel_err: max |err| over max |ref|),
+    and whether they are within the stated tolerance for dtype."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    max_ref = r.abs().max().item()
+    if dtype == torch.float32:
+        ok = bool((err <= F32_ATOL + F32_RTOL * r.abs()).all())
+    else:
+        ok = err.max().item() <= BF16_REL * max_ref
+    return {"max_abs_err": err.max().item(),
+            "max_rel_err": err.max().item() / max(max_ref, 1e-30),
+            "max_ref": max_ref, "ok": ok and bool(torch.isfinite(g).all())}
+
+
+def phase_environment() -> str:
+    import torch
+
+    print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[1] device {name}, capability {cap}, count {torch.cuda.device_count()}")
+    print(f"[1] nvidia-smi: {smi}")
+    require(cap == (9, 0), f"expected a Hopper card (capability (9, 0)), got {cap}")
+    from matrix_eyes_tpu.native import lanczos, pngwriter
+
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    print(f"[1] PIL {has_pil}, native pngwriter {pngwriter.available()}, "
+          f"native lanczos {lanczos.available()}")
+    return smi
+
+
+def phase_build() -> None:
+    from matrix_eyes_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        paths = list(pool.map(_build.library_path, ["attention_qkv", "conv3x3"]))
+    print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_kernels(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_plain
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    hot = {}
+    failures = []
+    for B, N, H, D, dt, n_valid in ATTENTION_SHAPES:
+        dtype = dtypes[dt]
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=gen).to(dtype)
+        scale = D ** -0.5
+        res = compare(attention_qkv(qkv, H, scale, n_valid),
+                      attention_qkv_plain(qkv, H, scale, n_valid), dtype)
+        reps = 10 if B * N > 1000 else 50
+        res["ms"] = time_ms(lambda: attention_qkv(qkv, H, scale, n_valid), reps)
+        res["plain_ms"] = time_ms(lambda: attention_qkv_plain(qkv, H, scale, n_valid), reps)
+        extra = ""
+        if (B, N, dt, n_valid) == (35, 577, "bf16", None):
+            q, k, v = (t.contiguous() for t in
+                       qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps)
+            extra = f" sdpa_ms(timing reference only)={sdpa:.4f}"
+            hot["attention_qkv"] = res
+        print(f"[3] attention B={B} N={N} H={H} D={D} {dt} n_valid={n_valid}: "
+              f"max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
+              f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
+              f"{extra} {'ok' if res['ok'] else 'FAIL'}")
+        if not res["ok"]:
+            failures.append(f"attention {B, N, H, D, dt, n_valid}")
+    for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias in CONV_SHAPES:
+        dtype = dtypes[dt]
+        x = torch.randn(B, H, W, cin, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5).to(dtype)
+        b = torch.randn(cout, device=dev, generator=gen).to(dtype) if has_bias else None
+        skips = [torch.randn(B, H, W, cout, device=dev, generator=gen).to(dtype)
+                 for _ in range(n_skips)] + [None] * (2 - n_skips)
+        res = compare(conv3x3(x, w, b, skips[0], skips[1], relu_in),
+                      conv3x3_plain(x, w, b, skips[0], skips[1], relu_in), dtype)
+        reps = 5 if H * W > 100_000 else 20
+        res["ms"] = time_ms(lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in), reps)
+        res["plain_ms"] = time_ms(lambda: conv3x3_plain(x, w, b, skips[0], skips[1], relu_in),
+                                  reps)
+        if (H, cin, cout, dt) == (768, 256, 256, "bf16"):
+            hot["conv3x3"] = res
+        print(f"[3] conv3x3 {B}x{H}x{W} {cin}->{cout} {dt} relu_in={relu_in} "
+              f"skips={n_skips}: max_abs={res['max_abs_err']:.3e} "
+              f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
+              f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"{'ok' if res['ok'] else 'FAIL'}")
+        if not res["ok"]:
+            failures.append(f"conv3x3 {B, H, W, cin, cout, dt}")
+    require(not failures, f"kernels disagree with their plain versions: {failures}")
+    return hot
+
+
+def _png_size(path: str):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    require(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def phase_main_path(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu.io.image import SourceImage
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
+    from matrix_eyes_tpu_torch.models import depth_pro
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+
+    cfg = DEPTH_PRO
+    runtime = RuntimeConfig(device=dev)
+    dtype = runtime.resolved_dtype()
+    require(dtype == torch.bfloat16, f"default dtype on CUDA should be bf16, got {dtype}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, dtype)
+    torch.cuda.synchronize()
+    print(f"[4] random DEPTH_PRO weights on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:3024, 0:4032]
+    rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
+    rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
+    src = SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out_png = os.path.join(OUT_DIR, "chip_smoke_depthmap.png")
+
+    walls = []
+    counts = []
+    for _ in range(2):
+        attention_qkv.launches = 0
+        conv3x3.launches = 0
+        t0 = time.perf_counter()
+        pipeline.extract_depth(cfg, params, "synthetic-3024x4032", out_png, runtime=runtime,
+                               source=src)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((attention_qkv.launches, conv3x3.launches))
+    print(f"[4] extract_depth wall s: first {walls[0]:.3f}, second {walls[1]:.3f}; "
+          f"launches per run (attention_qkv, conv3x3): {counts}")
+    expect = (3 * cfg.depth, 24)  # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs
+    require(all(c == expect for c in counts),
+            f"launch counts {counts}, expected {expect} per forward")
+    size = _png_size(out_png)
+    print(f"[4] {out_png}: {size[0]}x{size[1]}, {os.path.getsize(out_png)} bytes")
+    require(size == (4032, 3024), f"depth map PNG is {size}, expected 4032x3024")
+
+    img = pipeline.preprocess_image(src.rgb, cfg.img_size, dtype, dev)
+    inv, fov_deg = depth_pro.forward_with_fov(cfg, params, img)
+    require(tuple(inv.shape) == (1, cfg.img_size, cfg.img_size), f"inverse depth {inv.shape}")
+    require(bool(torch.isfinite(inv).all()) and bool(torch.isfinite(fov_deg).all()),
+            "non-finite inverse depth or FOV")
+    print(f"[4] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
+          f"{inv.max().item():.4g}], fov {fov_deg.item():.4f} deg; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"attention_qkv": counts[0][0], "conv3x3": counts[0][1],
+            "first_s": walls[0], "second_s": walls[1]}
+
+
+def phase_end_to_end(dev) -> None:
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch.config import MID
+    from matrix_eyes_tpu_torch.models import depth_pro
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.models.spec import tree_map
+
+    cfg = MID
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32)
+    gpu_params = tree_map(lambda _p, t: t.to(dev), cpu_params)
+    img = np.random.RandomState(5).uniform(-1, 1, (1, cfg.img_size, cfg.img_size, 3))
+    img = torch.from_numpy(img.astype(np.float32))
+    inv_cpu, fov_cpu = depth_pro.forward_with_fov(cfg, cpu_params, img)
+    inv_gpu, fov_gpu = depth_pro.forward_with_fov(cfg, gpu_params, img.to(dev))
+    inv_gpu, fov_gpu = inv_gpu.cpu(), fov_gpu.cpu()
+    fov_ok = bool(torch.allclose(fov_gpu, fov_cpu, rtol=E2E_RTOL, atol=0.0))
+    # compare in canonical units (inverse depth x f_norm): random weights
+    # make the FOV head estimate a tiny angle, whose 1/f_norm multiplies
+    # every value (~1700x at this seed) and would put f32 noise above atol
+    f_norm = math.tan(0.5 * fov_cpu.item() * math.pi / 180.0) / 0.5
+    can_cpu, can_gpu = inv_cpu * f_norm, inv_gpu * f_norm
+    err = (can_gpu - can_cpu).abs()
+    ok = fov_ok and bool((err <= E2E_ATOL + E2E_RTOL * can_cpu.abs()).all())
+    raw = (inv_gpu - inv_cpu).abs().max().item()
+    print(f"[5] MID f32 card vs CPU: fov {fov_gpu.item():.6f} vs {fov_cpu.item():.6f} deg "
+          f"(f_norm {f_norm:.4g}); inverse depth x f_norm max_abs={err.max().item():.3e} "
+          f"(raw inverse depth max_abs={raw:.3e}) {'ok' if ok else 'FAIL'}")
+    require(ok, "the port on the card disagrees with the port on the CPU at MID f32")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on an H100", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "matrix_eyes_tpu_torch")):
+        print("chip_smoke: run it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from matrix_eyes_tpu_torch.config import configure_precision
+
+    configure_precision()
+    dev = torch.device("cuda", 0)
+    smi = phase_environment()
+    phase_build()
+    hot = phase_kernels(dev)
+    launches = phase_main_path(dev)
+    phase_end_to_end(dev)
+    require("jax" not in sys.modules, "the port imported jax")
+
+    kernels = []
+    for name, source, replaces in (
+            ("attention_qkv", "matrix_eyes_tpu_torch/csrc/attention_qkv.cu",
+             "matrix_eyes_tpu/ops/flash_attention.py:229"),
+            ("conv3x3", "matrix_eyes_tpu_torch/csrc/conv3x3.cu",
+             "matrix_eyes_tpu/ops/conv3x3.py:187")):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": hot[name]["max_abs_err"],
+                        "ms": hot[name]["ms"], "plain_ms": hot[name]["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

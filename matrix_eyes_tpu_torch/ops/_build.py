@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, bound through ctypes (a few seconds per
+file; nothing includes PyTorch's headers). Libraries land in ``_build/``
+inside the package, named by a hash of the source and the flags, so an
+edited kernel is rebuilt and a stale library is never loaded. Nothing
+here runs at import time: the package imports on a machine without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Dict, Sequence, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+Signatures = Dict[str, Tuple[object, Sequence[object]]]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME or "", "bin", "nvcc")
+    if not CUDA_HOME or not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of matrix_eyes_tpu_torch are "
+            "built from source and need the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Build ``csrc/<name>.cu`` unless an up-to-date library exists; return
+    the library's path."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str, signatures: Signatures) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, with ``restype`` and
+    ``argtypes`` set from ``signatures`` ({function: (restype, argtypes)})."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(library_path(name))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = list(argtypes)
+            _libs[name] = lib
+        return lib
+
+
+def dtype_code(dtype) -> int:
+    """The kernels' dtype argument: 0 = float32, 1 = bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def check_launch(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed with code {rc}")

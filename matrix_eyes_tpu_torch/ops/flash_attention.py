@@ -1,0 +1,77 @@
+"""Fused-qkv attention: the Hopper kernel (``csrc/attention_qkv.cu``) and
+its plain version.
+
+Port of ``matrix_eyes_tpu/ops/flash_attention.py:attention_flash_qkv``.
+The kernel reads q, k and v straight out of the (B, N, 3C) qkv projection
+and writes the (B, N, C) output, so the (B, H, N, N) score tensor never
+touches device memory. It takes any token count (577 as it is: no token
+padding) and the head sizes of every config: 8, 32 and 64. The TPU
+kernel's lane grouping of heads is not needed here: a block serves one
+head.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from matrix_eyes_tpu_torch.ops import _build
+from matrix_eyes_tpu_torch.ops.attention import attention_qkv_xla as attention_qkv_plain
+
+HEAD_DIMS = (8, 32, 64)  # TINY, MID, DEPTH_PRO
+_LOG2E = 1.4426950408889634  # exp(x) = exp2(x * log2 e)
+
+_SIGNATURES = {
+    "me_attention_qkv": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p,                       # qkv, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, D
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,             # n_valid, scale*log2e, dtype
+        ctypes.c_void_p,                                        # stream
+    ]),
+}
+
+__all__ = ["attention_qkv", "attention_qkv_plain", "HEAD_DIMS"]
+
+
+def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
+                  n_valid: Optional[int] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v per (batch, head) from the (B, N, 3C) qkv
+    buffer ([q|k|v] x head x dim); returns (B, N, C). Keys at or past
+    ``n_valid`` (default N) are masked with -1e30.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
+    plain version."""
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be (B, N, 3C), got shape {tuple(qkv.shape)}")
+    B, N, C3 = qkv.shape
+    if C3 % 3 != 0 or (C3 // 3) % num_heads != 0:
+        raise ValueError(f"qkv feature axis {C3} must be 3 * num_heads * head_dim "
+                         f"(num_heads={num_heads})")
+    n_valid = N if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= N:
+        raise ValueError(f"n_valid must be in [1, {N}], got {n_valid}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, scale, n_valid)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_qkv runs on CUDA or CPU tensors, got {qkv.device}")
+    C = C3 // 3
+    D = C // num_heads
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {D}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("attention_qkv needs a contiguous, 16-byte aligned qkv tensor")
+    code = _build.dtype_code(qkv.dtype)
+    lib = _build.load("attention_qkv", _SIGNATURES)
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.me_attention_qkv(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D,
+                                  n_valid, float(scale) * _LOG2E, code, stream)
+    _build.check_launch(rc, "attention_qkv")
+    attention_qkv.launches += 1
+    return out
+
+
+attention_qkv.launches = 0

@@ -1,0 +1,206 @@
+"""The PyTorch port's primitives and kernel plain versions against the JAX package.
+
+Inputs come from numpy seeds and go through both packages. On the CPU each
+kernel wrapper runs its plain version; these tests hold that plain version
+to the Pallas kernel (interpret mode) with the tolerances of
+tests/test_flash_attention.py and tests/test_conv3x3.py (rtol 2e-5, atol
+2e-6 / 2e-5: f32 sums in another order). The CUDA kernels themselves are
+checked on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from matrix_eyes_tpu.ops import colormap as jcolormap
+from matrix_eyes_tpu.ops import nn as jnn
+from matrix_eyes_tpu.ops import resize as jresize
+from matrix_eyes_tpu.ops.attention import attention_xla as j_attention_xla
+from matrix_eyes_tpu.ops.conv3x3 import conv3x3_pallas
+from matrix_eyes_tpu.ops.flash_attention import attention_flash_qkv
+from matrix_eyes_tpu_torch.ops import colormap as tcolormap
+from matrix_eyes_tpu_torch.ops import nn as tnn
+from matrix_eyes_tpu_torch.ops import resize as tresize
+from matrix_eyes_tpu_torch.ops.attention import attention_xla as t_attention_xla
+from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
+from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+
+
+def _u(rng, shape, lo=-1.0, hi=1.0):
+    return rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _close(got, want, rtol, atol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol)
+
+
+# --- kernel plain versions vs the Pallas kernels (interpret mode) -----------
+
+@pytest.mark.parametrize("N,n_valid", [
+    (70, 64),     # ragged N: the TPU block overhangs the array
+    (130, 100),   # ragged N past one lane
+    (577, 570),   # the production token count, keys masked past n_valid
+    (577, None),  # the production token count, no mask
+])
+def test_attention_qkv_plain_matches_pallas(N, n_valid):
+    B, H, D = 1, 4, 64
+    rng = np.random.RandomState(N)
+    qkv = _u(rng, (B, N, 3 * H * D))
+    want = attention_flash_qkv(jnp.asarray(qkv), H, 0.125, n_valid=n_valid, interpret=True)
+    got = attention_qkv(torch.from_numpy(qkv), H, 0.125, n_valid)
+    _close(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_attention_xla_matches_jax():
+    rng = np.random.RandomState(1)
+    q, k, v = (_u(rng, (2, 2, 33, 16), -3, 3) for _ in range(3))
+    want = j_attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25)
+    got = t_attention_xla(*(torch.from_numpy(a) for a in (q, k, v)), 0.25)
+    _close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("shape,relu_in,n_skips", [
+    ((1, 12, 16, 128, 128), True, 2),   # the fused RCU with the fusion skip
+    ((2, 8, 16, 128, 256), False, 0),   # plain conv, batched
+    ((1, 16, 16, 128, 128), True, 1),   # the RCU's second conv
+])
+def test_conv3x3_plain_matches_pallas(shape, relu_in, n_skips):
+    B, H, W, cin, cout = shape
+    rng = np.random.RandomState(sum(shape))
+    x = _u(rng, (B, H, W, cin))
+    w = _u(rng, (3, 3, cin, cout), -0.2, 0.2)
+    b = _u(rng, (cout,), -0.5, 0.5)
+    skips = [_u(rng, (B, H, W, cout)) for _ in range(n_skips)] + [None] * (2 - n_skips)
+    j = [None if a is None else jnp.asarray(a) for a in skips]
+    want = conv3x3_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), skip=j[0],
+                          skip2=j[1], relu_in=relu_in, interpret=True)
+    t = [None if a is None else torch.from_numpy(a) for a in skips]
+    got = conv3x3(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), t[0], t[1],
+                  relu_in)
+    _close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("cin,cout,relu_in,with_skip", [
+    (129, 128, False, False),  # the head's composed conv (ones channel)
+    (8, 4, True, True),        # TINY decoder widths
+    (12, 8, False, False),     # TINY projection
+])
+def test_conv3x3_unaligned_matches_jax_conv(cin, cout, relu_in, with_skip):
+    rng = np.random.RandomState(cin + cout)
+    x = _u(rng, (2, 9, 7, cin))
+    w = _u(rng, (3, 3, cin, cout), -0.2, 0.2)
+    b = _u(rng, (cout,), -0.5, 0.5)
+    s = _u(rng, (2, 9, 7, cout))
+    jx = jnn.relu(jnp.asarray(x)) if relu_in else jnp.asarray(x)
+    want = jnn.conv2d(jx, jnp.asarray(w), jnp.asarray(b), padding=1)
+    if with_skip:
+        want = want + jnp.asarray(s)
+    got = conv3x3(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                  torch.from_numpy(s) if with_skip else None, relu_in=relu_in)
+    _close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_wrappers_take_only_cpu_or_cuda_tensors():
+    # a CPU tensor runs the plain version and counts no launch; any other
+    # device raises instead of falling back
+    before = (attention_qkv.launches, conv3x3.launches)
+    attention_qkv(torch.zeros(1, 5, 3 * 2 * 8), 2, 0.5)
+    conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 4))
+    assert (attention_qkv.launches, conv3x3.launches) == before
+    with pytest.raises(ValueError):
+        attention_qkv(torch.zeros(1, 5, 48, device="meta"), 2, 0.5)
+    with pytest.raises(ValueError):
+        conv3x3(torch.zeros(1, 4, 4, 8, device="meta"), torch.zeros(3, 3, 8, 4, device="meta"))
+
+
+@pytest.mark.parametrize("bad", [
+    lambda: attention_qkv(torch.zeros(1, 5, 47), 2, 0.5),           # not 3 * H * D
+    lambda: attention_qkv(torch.zeros(1, 5, 48), 2, 0.5, n_valid=6),  # n_valid > N
+    lambda: conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 7, 4)),  # Cin mismatch
+    lambda: conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 4),
+                    skip=torch.zeros(1, 4, 4, 5)),                    # skip shape
+])
+def test_wrappers_reject_bad_shapes(bad):
+    with pytest.raises(ValueError):
+        bad()
+
+
+# --- primitives vs their JAX functions (f32; matmul-based ops may sum in
+# another order: rtol 2e-5 / atol 2e-6; elementwise ops 1e-6 / 1e-7) --------
+
+def _prim_cases():
+    rng = np.random.RandomState(0)
+    x = _u(rng, (2, 6, 8, 12))
+    w = _u(rng, (12, 20))
+    b = _u(rng, (20,))
+    wd = _u(rng, (12, 4 * 5))
+    bd = _u(rng, (5,))
+    scale, bias = _u(rng, (12,)), _u(rng, (12,))
+    img = _u(rng, (2, 32, 32, 3))
+    wp = _u(rng, (16 * 16 * 3, 7))
+    bp = _u(rng, (7,))
+    w3 = _u(rng, (3, 3, 12, 6))
+    b3 = _u(rng, (6,))
+    w6 = _u(rng, (6, 6, 12, 1))
+    xs = _u(rng, (1, 6, 6, 12))
+    big = _u(rng, (1, 16, 24, 5), -3, 3)
+    return {
+        "linear": (lambda m, a: m.linear(a(x), a(w), a(b)), 2e-5, 2e-6),
+        "linear_nobias": (lambda m, a: m.linear(a(x), a(w)), 2e-5, 2e-6),
+        "layer_norm": (lambda m, a: m.layer_norm(a(x), a(scale), a(bias), 1e-6), 2e-5, 2e-6),
+        # XLA's erf polynomial and torch's differ by a few ulp
+        "gelu": (lambda m, a: m.gelu(a(big)), 1e-5, 1e-6),
+        "relu": (lambda m, a: m.relu(a(big)), 0, 0),
+        "deconv2x2": (lambda m, a: m.deconv2x2(a(x), a(wd), a(bd)), 2e-5, 2e-6),
+        "deconv2x2_nobias": (lambda m, a: m.deconv2x2(a(x), a(wd)), 2e-5, 2e-6),
+        "patch_embed": (lambda m, a: m.patch_embed(a(img), a(wp), a(bp), 16), 2e-5, 2e-6),
+        "conv2d_s2": (lambda m, a: m.conv2d(a(x), a(w3), a(b3), stride=2, padding=1), 2e-5, 2e-6),
+        "conv2d_k6_valid": (lambda m, a: m.conv2d(a(xs), a(w6), a(b3[:1])), 2e-5, 2e-6),
+        "conv2d_3x3": (lambda m, a: m.conv2d(a(x), a(w3), a(b3), padding=1), 2e-5, 2e-6),
+        "downsample_half": (lambda m, a: m.downsample_half(a(big[:, :, :16])), 1e-6, 1e-7),
+        "downsample_quarter": (lambda m, a: m.downsample_quarter(a(big[:, :, :16])), 1e-6, 1e-7),
+    }
+
+
+_PRIMS = _prim_cases()
+_RESIZE_OPS = ("downsample_half", "downsample_quarter")
+
+
+@pytest.mark.parametrize("name", sorted(_PRIMS))
+def test_primitive_matches_jax(name):
+    fn, rtol, atol = _PRIMS[name]
+    jmod, tmod = (jresize, tresize) if name in _RESIZE_OPS else (jnn, tnn)
+    want = fn(jmod, jnp.asarray)
+    got = fn(tmod, torch.from_numpy)
+    assert got.dtype == torch.float32
+    _close(got, want, rtol, atol)
+
+
+@pytest.mark.parametrize("src,dst", [((37, 53), (96, 64)), ((96, 128), (40, 41))])
+def test_resize_lanczos3_matches_jax(src, dst):
+    rng = np.random.RandomState(src[0])
+    img = rng.uniform(0, 255, src + (3,)).astype(np.float32)
+    want = jresize.resize_lanczos3(jnp.asarray(img), *dst)
+    got = tresize.resize_lanczos3(torch.from_numpy(img), *dst)
+    _close(got, want, rtol=1e-5, atol=2e-4)  # values up to 255: atol ~ 1 ulp there
+
+
+def test_to_u8_rounds_half_away_from_zero():
+    x = np.array([-3.0, 0.25, 0.5, 1.5, 2.5, 254.5, 255.4, 300.0], np.float32)
+    want = np.asarray(jresize.to_u8(jnp.asarray(x)))
+    got = tresize.to_u8(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [0, 0, 1, 2, 3, 255, 255, 255])
+
+
+def test_map_depth_bit_exact():
+    rng = np.random.RandomState(3)
+    edges = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    v = np.concatenate([rng.uniform(0, 1, 5000).astype(np.float32), edges,
+                        np.array([0.0, 1.0, 1.5, np.nextafter(1.0, 0.0)], np.float32)])
+    want = np.asarray(jcolormap.map_depth(jnp.asarray(v)))
+    got = tcolormap.map_depth(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -1,0 +1,184 @@
+"""The PyTorch port's preprocess, depth-map output, pipeline and CLI against
+the JAX package."""
+
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax.numpy as jnp
+
+from matrix_eyes_tpu import cli as jcli
+from matrix_eyes_tpu.config import TINY as J_TINY
+from matrix_eyes_tpu.errors import ReconstructionError
+from matrix_eyes_tpu.io.image import SourceImage
+from matrix_eyes_tpu.output import depthmap as jdepthmap
+from matrix_eyes_tpu.output import png as jpng
+from matrix_eyes_tpu.pipeline import preprocess_image as j_preprocess
+from matrix_eyes_tpu_torch import cli as tcli
+from matrix_eyes_tpu_torch.config import TINY
+from matrix_eyes_tpu_torch.models.init import init_params
+from matrix_eyes_tpu_torch.output import depthmap as tdepthmap
+from matrix_eyes_tpu_torch.output import png as tpng
+from matrix_eyes_tpu_torch.pipeline import extract_depth, preprocess_image
+
+import torch_ref
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _u8_counts(x) -> np.ndarray:
+    """Normalised model input back to u8 counts."""
+    return np.rint((np.asarray(x, np.float64) + 1.0) * 127.5).astype(np.int64)
+
+
+def test_preprocess_matches_jax():
+    # the Lanczos3 matmuls sum in another order: a value within 1 ulp of a
+    # rounding boundary may land one count apart (bound: <= 1 count on
+    # <= 1e-4 of values)
+    rgb = np.random.RandomState(0).randint(0, 256, (96, 128, 3), dtype=np.uint8)
+    want = _u8_counts(j_preprocess(jnp.asarray(rgb), 1536, jnp.float32))
+    got = preprocess_image(rgb, 1536, torch.float32, "cpu")
+    assert tuple(got.shape) == (1, 1536, 1536, 3) and got.dtype == torch.float32
+    diff = np.abs(_u8_counts(got.numpy()) - want)
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["random", "constant"])
+def test_render_grid_bit_exact(kind):
+    rng = np.random.RandomState(1)
+    data = rng.uniform(1 / 300, 12, (64, 96)).astype(np.float32)
+    if kind == "constant":
+        data[:] = 0.5
+    jclamped = jdepthmap._clamp_inverse_depth(jnp.asarray(data))
+    tclamped = tdepthmap.clamp_inverse_depth(torch.from_numpy(data))
+    np.testing.assert_array_equal(tclamped.numpy(), np.asarray(jclamped))
+    want = np.asarray(jdepthmap._render_depth_map_grid(jclamped))
+    got = tdepthmap.render_depth_map_grid(tclamped).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_render_device_resize_matches_jax():
+    # the device-resize path (no native resizer): grid render exact, then
+    # Lanczos3 matmuls summed in another order (<= 1 count, <= 1e-4 of values)
+    data = np.random.RandomState(2).uniform(0.01, 5, (48, 64)).astype(np.float32)
+    want = np.asarray(jdepthmap._render_depth_map(jnp.asarray(data), 97, 131)).astype(int)
+    got = tdepthmap.render_depth_map(torch.from_numpy(data), 97, 131).numpy().astype(int)
+    diff = np.abs(got - want)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+
+
+def test_png_bytes_match_jax_host_resize(tmp_path):
+    grid = np.random.RandomState(3).randint(0, 256, (40, 52, 3), dtype=np.uint8)
+    assert tpng.host_resize_supported()
+    jpng.save_depthmap_host_resize(jnp.asarray(grid), str(tmp_path / "j.png"), 97, 131)
+    tpng.save_depthmap_host_resize(grid, str(tmp_path / "t.png"), 97, 131)
+    assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    tm = torch_ref.randomize(torch_ref.DepthPro(J_TINY), seed=5)
+    ckpt = d / "tiny.pt"
+    torch.save(tm.state_dict(), str(ckpt))
+    # larger than the 512^2 TINY grid, so the save takes the host-resize path
+    img = np.random.RandomState(0).randint(0, 256, size=(480, 640, 3), dtype=np.uint8)
+    src = d / "src.jpg"
+    Image.fromarray(img).save(str(src), quality=95)
+    return d, str(ckpt), str(src)
+
+
+def test_cli_matches_jax_cli(workdir):
+    # with a focal length: random weights make the FOV head estimate a tiny
+    # angle that clamps every pixel to one colour, which would compare nothing
+    d, ckpt, src = workdir
+    jout, tout = str(d / "jax.png"), str(d / "torch.png")
+    assert jcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", src, jout]) == 0
+    assert tcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", src, tout]) == 0
+    a = np.asarray(Image.open(tout).convert("RGB")).astype(int)
+    b = np.asarray(Image.open(jout).convert("RGB")).astype(int)
+    assert a.shape == b.shape == (480, 640, 3)
+    assert len(np.unique(b.reshape(-1, 3), axis=0)) > 1000
+    # f32 model differences (test_torch_model.py tolerances) move a few
+    # pixels of the colour map by a count or two
+    assert (np.abs(a - b) <= 2).all(axis=-1).mean() >= 0.999
+
+
+def test_cli_fov_path(workdir):
+    d, ckpt, src = workdir
+    out = str(d / "fov.png")
+    assert tcli.main([f"--checkpoint-path={ckpt}", "--dtype=f32", src, out]) == 0
+    with Image.open(out) as im:
+        assert im.format == "PNG" and im.size == (640, 480)
+
+
+def test_cli_missing_checkpoint_exits_1(workdir, capsys):
+    d, _ckpt, src = workdir
+    assert tcli.main([f"--checkpoint-path={d / 'nope.pt'}", src, str(d / "x.png")]) == 1
+    assert "Reconstruction failed" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    [],                                            # no source image
+    ["only_src.jpg"],                              # no output image
+    ["a.jpg", "b.png", "c.png"],                   # unexpected positional
+    ["--focal-length", "a.jpg", "b.png"],          # flag without value
+    ["--focal-length=abc", "a.jpg", "b.png"],      # bad value
+    ["--dtype=int8", "a.jpg", "b.png"],            # dtype policy not ported
+    ["--image-output-format=stereogram", "a.jpg", "b.png"],  # output not ported
+    ["--mesh=plain", "a.jpg", "b.png"],            # flag not ported
+    ["--batch-size=2", "a.jpg", "b.png"],          # flag not ported
+    ["a.jpg", "b.obj"],                            # mesh output not ported
+    ["a.jpg", "b.png", "--focal-length=28"],       # options only before positionals
+])
+def test_cli_bad_arguments_exit_2(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.raises(SystemExit) as e:
+        tcli.parse_args(argv, stdout=out, stderr=err)
+    assert e.value.code == 2
+    assert "Usage:" in out.getvalue() and err.getvalue()
+    assert tcli.main(argv) == 2
+
+
+def test_cli_help_and_unknown_flag():
+    out = io.StringIO()
+    with pytest.raises(SystemExit) as e:
+        tcli.parse_args(["--help"], stdout=out)
+    assert e.value.code == 0 and "Usage:" in out.getvalue()
+    err = io.StringIO()
+    a = tcli.parse_args(["--bogus=1", "in.jpg", "out.png"], stdout=io.StringIO(), stderr=err)
+    assert (a.img_src, a.img_out) == ("in.jpg", "out.png")
+    assert "Unsupported argument" in err.getvalue()
+
+
+def test_extract_depth_stage_errors(tmp_path, capsys):
+    params = init_params(TINY, torch.Generator().manual_seed(0), "cpu")
+    del params["fov"]
+    with pytest.raises(ReconstructionError) as e:
+        extract_depth(TINY, params, str(tmp_path / "missing.jpg"), str(tmp_path / "o.png"))
+    assert e.value.stage == "load"
+    assert "Failed to load source image" in capsys.readouterr().err
+    # no focal length and no FOV weights: a model-stage (systemic) failure
+    src = SourceImage(rgb=np.zeros((8, 8, 3), np.uint8), original_size=(8, 8),
+                      focal_length_35mm=None)
+    with pytest.raises(ReconstructionError) as e:
+        extract_depth(TINY, params, "x", str(tmp_path / "o.png"), source=src)
+    assert e.value.stage == "model"
+    assert "Failed to process image" in capsys.readouterr().err
+
+
+def test_port_imports_no_jax():
+    code = ("import sys\n"
+            "import matrix_eyes_tpu_torch.cli, matrix_eyes_tpu_torch.pipeline\n"
+            "import matrix_eyes_tpu_torch.pt.convert, matrix_eyes_tpu_torch.models.init\n"
+            "sys.exit(int('jax' in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr or "jax was imported"
