@@ -8,14 +8,30 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 1. environment: versions, the card, its power limit, host encoders;
-2. build both CUDA kernels from matrix_eyes_tpu_torch/csrc/;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with errors and warm times;
+2. build the three CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
+   nvcc each, all at once);
+3. each kernel entry against its plain PyTorch version on the card, at the
+   shapes the main path gives it, with errors and warm times:
+   attention_qkv, attention_flash (the separate-q/k/v entry into the same
+   kernel), conv3x3, and linker_scan (bit-exact);
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
    photo at full DEPTH_PRO width (seeded random weights, bf16): launch
    counts, finite inverse depth, a 4032x3024 PNG;
 5. the port on the card against the port on the CPU (plain versions) at
-   MID, f32.
+   MID, f32;
+6. the stereogram path on the phase-4 photo and weights, each run twice:
+   the compact PNG (amplitude 1/16, no linker_scan launch), the
+   device-resolved PNG (amplitude 0.1, shifts over 255: one launch) and a
+   JPEG (one launch); both PNGs decode to 4032x3024 and equal the
+   device-resolved render of the same DepthMap and seed.
+
+Every path's counts are read from its own first run, each counter set to 0
+just before it. In the summary, ``launches_by_path`` gives each kernel's
+count on each of the four paths (depth-map PNG, compact PNG, resolved PNG,
+JPEG), and ``launches`` the count on the path that runs the kernel: the
+depth-map PNG for attention_qkv and conv3x3, the resolved PNG for
+linker_scan. No path runs attention_flash (the ViT calls the fused entry):
+its ``launches`` is the depth-map run's count, 0.
 
 The last lines are the kernels' summary (JSON), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``. The
@@ -46,6 +62,9 @@ BF16_REL = 2e-2
 # end to end at MID f32 (plain versions on the CPU vs kernels on the card):
 # the same per-op rounding differences, carried through every stage.
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
+# linker_scan copies pixels: bit-exact against its plain version.
+
+STEREO_SEED = 7
 
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
@@ -56,6 +75,22 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 65, 4, 32, "f32", None),      # MID heads
     (2, 130, 4, 32, "bf16", 100),      # MID heads, ragged N, masked
 ]
+FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffer)
+    (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
+    (1, 16, 577, 64, "bf16", 500, False),   # keys past n_valid masked
+    (2, 4, 130, 32, "bf16", 100, False),    # MID heads, ragged N, masked
+    (3, 2, 70, 8, "f32", None, False),      # TINY heads, ragged N
+]
+LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
+    (3024, 4032, 1 / 16),   # 12 MP photo, default amplitude: pw 504, win 253
+    (3024, 4032, 0.1),      # shifts over 255: pw 807, win 404
+    (4536, 6048, 1 / 16),   # --resize-scale=1.5: pw 756, win 379
+    (1, 300, 1 / 16),       # one row
+    (130, 33, 0.45),        # W < pw + win, H not a multiple of anything
+    (5, 20, 0.06),          # win == pw: one column per step
+    (4, 20, 0.6),           # pw > W: noise only
+    (3, 30000, 0.45),       # pw 27000: rings past shared memory's size
+]
 CONV_SHAPES = [  # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias)
     (1, 768, 768, 256, 256, "bf16", True, 2, True),   # fused RCU, the hot shape
     (1, 768, 768, 129, 128, "bf16", False, 0, True),  # head's composed conv
@@ -65,6 +100,29 @@ CONV_SHAPES = [  # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias)
     (2, 7, 9, 8, 4, "f32", True, 1, True),            # TINY channels, odd sizes
     (1, 5, 3, 129, 128, "f32", False, 0, True),       # 129 channels, tiny grid
 ]
+
+
+def kernel_wrappers() -> dict:
+    """The kernels' wrappers by name; each counts its own launches."""
+    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+    from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
+
+    return {"attention_qkv": attention_qkv, "conv3x3": conv3x3, "linker_scan": linker_scan,
+            "attention_flash": attention_flash}
+
+
+def counted_run(fn):
+    """Run fn with every launch counter set to 0 just before it; return its
+    result and the counts just after ({kernel: launches})."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {name: w.launches for name, w in wrappers.items()}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -137,8 +195,9 @@ def phase_build() -> None:
     from matrix_eyes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        paths = list(pool.map(_build.library_path, ["attention_qkv", "conv3x3"]))
+    names = ["attention_qkv", "conv3x3", "linker_scan"]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -148,7 +207,14 @@ def phase_kernels(dev) -> dict:
     import torch.nn.functional as F
 
     from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_plain
+    from matrix_eyes_tpu_torch.ops.flash_attention import (
+        attention_flash,
+        attention_flash_plain,
+        attention_qkv,
+        attention_qkv_plain,
+    )
+    from matrix_eyes_tpu_torch.ops.stereogram import _max_shift, stereogram_geometry
+    from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan, linker_scan_plain
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -176,6 +242,49 @@ def phase_kernels(dev) -> dict:
               f"{extra} {'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"attention {B, N, H, D, dt, n_valid}")
+    for B, H, N, D, dt, n_valid, views in FLASH_SHAPES:
+        dtype = dtypes[dt]
+        if views:
+            qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=gen).to(dtype)
+            q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = (torch.randn(B, H, N, D, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+        scale = D ** -0.5
+        res = compare(attention_flash(q, k, v, scale, n_valid),
+                      attention_flash_plain(q, k, v, scale, n_valid), dtype)
+        reps = 10 if B * N > 1000 else 50
+        res["ms"] = time_ms(lambda: attention_flash(q, k, v, scale, n_valid), reps)
+        res["plain_ms"] = time_ms(lambda: attention_flash_plain(q, k, v, scale, n_valid), reps)
+        if views:
+            hot["attention_flash"] = res
+        print(f"[3] attention_flash B={B} H={H} N={N} D={D} {dt} n_valid={n_valid} "
+              f"views={views}: max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
+              f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"{'ok' if res['ok'] else 'FAIL'}")
+        if not res["ok"]:
+            failures.append(f"attention_flash {B, H, N, D, dt, n_valid}")
+    for H, W, amplitude in LINKER_SHAPES:
+        dm, pw = stereogram_geometry(W, amplitude)
+        win = _max_shift(dm) + 1
+        u = torch.rand(H, W, device=dev, generator=gen)
+        shift = torch.floor(u * dm + 0.5).to(torch.int32)
+        noise = torch.randint(0, 256, (H, pw, 3), device=dev, generator=gen, dtype=torch.uint8)
+        got = linker_scan(shift, noise, pw, win)
+        want = linker_scan_plain(shift, noise, pw, win)
+        torch.cuda.synchronize()
+        err = (got.int() - want.int()).abs().max().item()
+        res = {"max_abs_err": float(err), "ok": bool(torch.equal(got, want))}
+        reps = 10 if H * W > 100_000 else 50
+        res["ms"] = time_ms(lambda: linker_scan(shift, noise, pw, win), reps)
+        res["plain_ms"] = time_ms(lambda: linker_scan_plain(shift, noise, pw, win), reps)
+        if (H, W, amplitude) == LINKER_SHAPES[0]:
+            hot["linker_scan"] = res
+        print(f"[3] linker_scan {H}x{W} amplitude={amplitude:g} pw={pw} win={win}: "
+              f"max_abs={err} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"{'ok (bit-exact)' if res['ok'] else 'FAIL'}")
+        if not res["ok"]:
+            failures.append(f"linker_scan {H, W, amplitude}")
     for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias in CONV_SHAPES:
         dtype = dtypes[dt]
         x = torch.randn(B, H, W, cin, device=dev, generator=gen).to(dtype)
@@ -209,7 +318,7 @@ def _png_size(path: str):
     return struct.unpack(">II", head[16:24])
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev) -> tuple:
     import numpy as np
     import torch
 
@@ -218,8 +327,6 @@ def phase_main_path(dev) -> dict:
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
     from matrix_eyes_tpu_torch.models import depth_pro
     from matrix_eyes_tpu_torch.models.init import init_params
-    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
 
     cfg = DEPTH_PRO
     runtime = RuntimeConfig(device=dev)
@@ -240,17 +347,16 @@ def phase_main_path(dev) -> dict:
     walls = []
     counts = []
     for _ in range(2):
-        attention_qkv.launches = 0
-        conv3x3.launches = 0
         t0 = time.perf_counter()
-        pipeline.extract_depth(cfg, params, "synthetic-3024x4032", out_png, runtime=runtime,
-                               source=src)
-        torch.cuda.synchronize()
+        _, c = counted_run(lambda: pipeline.extract_depth(
+            cfg, params, "synthetic-3024x4032", out_png, runtime=runtime, source=src))
         walls.append(time.perf_counter() - t0)
-        counts.append((attention_qkv.launches, conv3x3.launches))
+        counts.append(c)
     print(f"[4] extract_depth wall s: first {walls[0]:.3f}, second {walls[1]:.3f}; "
-          f"launches per run (attention_qkv, conv3x3): {counts}")
-    expect = (3 * cfg.depth, 24)  # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs
+          f"launches per run: {counts}")
+    # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan on this path
+    expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
+              "attention_flash": 0}
     require(all(c == expect for c in counts),
             f"launch counts {counts}, expected {expect} per forward")
     size = _png_size(out_png)
@@ -265,8 +371,7 @@ def phase_main_path(dev) -> dict:
     print(f"[4] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
           f"{inv.max().item():.4g}], fov {fov_deg.item():.4f} deg; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"attention_qkv": counts[0][0], "conv3x3": counts[0][1],
-            "first_s": walls[0], "second_s": walls[1]}
+    return counts[0], params, src
 
 
 def phase_end_to_end(dev) -> None:
@@ -301,6 +406,64 @@ def phase_end_to_end(dev) -> None:
     require(ok, "the port on the card disagrees with the port on the CPU at MID f32")
 
 
+def _decode_rgb(path: str):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def phase_stereogram(dev, params, src) -> dict:
+    """The stereogram path at full DEPTH_PRO width; returns each run's
+    launch counts ({path: {kernel: launches}}) from its first pass."""
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
+    from matrix_eyes_tpu_torch.output import png
+    from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
+
+    require(png.split_supported(), "the native PNG encoder is missing: no compact form")
+    cfg = DEPTH_PRO
+    runtime = RuntimeConfig(device=dev, seed=STEREO_SEED)
+    runs = [  # (path, name, destination, amplitude, linker_scan launches)
+        ("compact_png", "compact PNG", "chip_smoke_stereo_compact.png", 1 / 16, 0),
+        ("resolved_png", "device-resolved PNG", "chip_smoke_stereo_resolved.png", 0.1, 1),
+        ("jpeg", "JPEG", "chip_smoke_stereo.jpg", 1 / 16, 1),
+    ]
+    by_path = {}
+    for path, name, fname, amplitude, want_scans in runs:
+        out = os.path.join(OUT_DIR, fname)
+        walls, counts = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            depth_map, c = counted_run(lambda: pipeline.extract_depth(
+                cfg, params, "synthetic-3024x4032", out,
+                image_format=ImageOutputFormat.STEREOGRAM, stereo_amplitude=amplitude,
+                runtime=runtime, source=src))
+            walls.append(time.perf_counter() - t0)
+            counts.append(c)
+        by_path[path] = counts[0]
+        print(f"[6] stereogram {name} (amplitude {amplitude:g}) wall s: first {walls[0]:.3f}, "
+              f"second {walls[1]:.3f}; launches per run: {counts}; "
+              f"{os.path.getsize(out)} bytes")
+        expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": want_scans,
+                  "attention_flash": 0}
+        require(all(c == expect for c in counts),
+                f"stereogram {name}: launch counts {counts}, expected {expect} per run")
+        img = _decode_rgb(out)
+        require(img.shape == (3024, 4032, 3), f"stereogram {name} decodes to {img.shape}")
+        if fname.endswith(".png"):
+            ref = depth_map.render_stereogram(None, amplitude, STEREO_SEED).cpu().numpy()
+            same = bool(np.array_equal(img, ref))
+            print(f"[6] {name}: decoded pixels equal the kernel's device-resolved render: "
+                  f"{same}")
+            require(same, f"stereogram {name}: PNG pixels differ from the device render")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -319,18 +482,26 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     hot = phase_kernels(dev)
-    launches = phase_main_path(dev)
+    by_path = {}
+    by_path["depthmap_png"], params, src = phase_main_path(dev)
     phase_end_to_end(dev)
+    by_path.update(phase_stereogram(dev, params, src))
     require("jax" not in sys.modules, "the port imported jax")
 
     kernels = []
-    for name, source, replaces in (
+    for name, source, replaces, path in (
             ("attention_qkv", "matrix_eyes_tpu_torch/csrc/attention_qkv.cu",
-             "matrix_eyes_tpu/ops/flash_attention.py:229"),
+             "matrix_eyes_tpu/ops/flash_attention.py:229", "depthmap_png"),
             ("conv3x3", "matrix_eyes_tpu_torch/csrc/conv3x3.cu",
-             "matrix_eyes_tpu/ops/conv3x3.py:187")):
+             "matrix_eyes_tpu/ops/conv3x3.py:187", "depthmap_png"),
+            ("linker_scan", "matrix_eyes_tpu_torch/csrc/linker_scan.cu",
+             "matrix_eyes_tpu/ops/stereogram_kernel.py:58", "resolved_png"),
+            ("attention_flash", "matrix_eyes_tpu_torch/csrc/attention_qkv.cu",
+             "matrix_eyes_tpu/ops/flash_attention.py:159", "depthmap_png")):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": hot[name]["max_abs_err"],
+                        "launches": by_path[path][name], "launches_path": path,
+                        "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                        "max_abs_err": hot[name]["max_abs_err"],
                         "ms": hot[name]["ms"], "plain_ms": hot[name]["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,9 +7,10 @@
   ``--help`` -> usage + exit 0;
 * reconstruction failure -> message + exit 1.
 
-The port runs one photo to a viridis depth map. Flags and outputs of the
-JAX package that the port does not run yet (stereogram, mesh, batch,
-devices, the f16/int8/mixed dtypes, ...) exit 2 with a message saying so.
+The port runs one photo to a viridis depth map or an autostereogram.
+Flags and outputs of the JAX package that the port does not run yet
+(mesh, batch, devices, the f16/int8/mixed dtypes, ...) exit 2 with a
+message saying so.
 """
 
 from __future__ import annotations
@@ -31,20 +32,27 @@ Arguments:
 Options:
       --focal-length=<FOCAL_LENGTH>       Focal length in 35mm equivalent
       --checkpoint-path=<CHECKPOINT_PATH> Path to checkpoint file [default: ./checkpoints/depth_pro.pt]
-      --image-output-format=<FORMAT>      Format for output [default: depthmap] [possible values: depthmap]
+      --image-output-format=<FORMAT>      Format for output [default: depthmap] [possible values: depthmap, stereogram]
+      --resize-scale=<SCALE>              Custom scale for stereogram output [default: 1.0]
+      --stereo-amplitude=<AMPLITUDE>      Custom scale for stereogram output [default: 0.0625]
       --dtype=<DTYPE>                     Compute/parameter dtype [default: bf16 on CUDA, f32 elsewhere] [possible values: f32, bf16]
+      --seed=<SEED>                       Stereogram noise seed [default: 0]
       --help                              Print help"""
 
 # flags of the JAX package's CLI that the port does not run yet
-_NOT_PORTED = ("--resize-scale", "--stereo-amplitude", "--mesh", "--convert-checkpoints",
-               "--seed", "--devices", "--batch-size", "--no-flash-attention", "--profile")
+_NOT_PORTED = ("--mesh", "--convert-checkpoints", "--devices", "--batch-size",
+               "--no-flash-attention", "--profile")
 
 
 @dataclass
 class Args:
     focal_length: Optional[float] = None
     checkpoint_path: str = "./checkpoints/depth_pro.pt"
+    output_format: str = "depthmap"
+    resize_scale: Optional[float] = None
+    stereo_amplitude: float = 1.0 / 16.0
     dtype: Optional[str] = None
+    seed: int = 0
     img_src: str = ""
     img_out: str = ""
 
@@ -60,6 +68,14 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
     stdout = stdout or sys.stdout
     stderr = stderr or sys.stderr
     args = Args()
+
+    def parse_value(name: str, value: str, cast):
+        try:
+            return cast(value)
+        except ValueError as err:
+            raise _fail_usage(f"Argument {name} has an unsupported value {value}: {err}",
+                              stderr, stdout)
+
     for arg in argv:
         if arg.startswith("--") and not args.img_src:
             if arg == "--help":
@@ -73,26 +89,23 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
                 raise _fail_usage(f"Option flag {arg} has no value", stderr, stdout)
             value = arg.split("=", 1)[1]
             if name == "--focal-length":
-                try:
-                    args.focal_length = float(value)
-                except ValueError as err:
-                    raise _fail_usage(f"Argument {name} has an unsupported value {value}: {err}",
-                                      stderr, stdout)
+                args.focal_length = parse_value(name, value, float)
             elif name == "--image-output-format":
-                if value.lower() != "depthmap":
-                    raise _fail_usage(
-                        f"Unsupported output format {value} (the PyTorch port writes "
-                        "depthmap only)", stderr, stdout)
+                if value.lower() not in ("depthmap", "stereogram"):
+                    raise _fail_usage(f"Unsupported output format {value}", stderr, stdout)
+                args.output_format = value.lower()
+            elif name == "--resize-scale":
+                args.resize_scale = parse_value(name, value, float)
+            elif name == "--stereo-amplitude":
+                args.stereo_amplitude = parse_value(name, value, float)
+            elif name == "--seed":
+                args.seed = parse_value(name, value, int)
             elif name == "--checkpoint-path":
                 args.checkpoint_path = value
             elif name == "--dtype":
                 from matrix_eyes_tpu_torch.config import parse_dtype
 
-                try:
-                    parse_dtype(value)
-                except ValueError as err:
-                    raise _fail_usage(f"Argument {name} has an unsupported value {value}: {err}",
-                                      stderr, stdout)
+                parse_value(name, value, parse_dtype)
                 args.dtype = value
             else:
                 print(f"Unsupported argument {arg}", file=stderr)
@@ -120,10 +133,12 @@ def run(args: Args, progress=None) -> None:
     known) and run the pipeline on the CUDA device when there is one."""
     from matrix_eyes_tpu.io.image import load_source_image
     from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype
+    from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
     from matrix_eyes_tpu_torch.pipeline import extract_depth
     from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
 
-    runtime = RuntimeConfig(dtype=parse_dtype(args.dtype) if args.dtype else None)
+    runtime = RuntimeConfig(dtype=parse_dtype(args.dtype) if args.dtype else None,
+                            seed=args.seed)
     src = load_source_image(args.img_src, args.focal_length)
     parts = ("encoder", "decoder", "head")
     if src.f_norm() is None:
@@ -133,6 +148,8 @@ def run(args: Args, progress=None) -> None:
     cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
                                   device=runtime.resolved_device(), parts=parts)
     extract_depth(cfg, params, args.img_src, args.img_out, focal_length_35mm=args.focal_length,
+                  image_format=ImageOutputFormat(args.output_format),
+                  resize_scale=args.resize_scale, stereo_amplitude=args.stereo_amplitude,
                   runtime=runtime, progress=progress, source=src)
 
 

@@ -116,10 +116,12 @@ def configure_precision() -> None:
 class RuntimeConfig:
     """dtype: parameter/compute dtype (accumulation is always f32); None
     picks bf16 on CUDA and f32 on the CPU. device: None picks CUDA when
-    present."""
+    present. seed: stereogram noise seed (a CPU ``torch.Generator``, so a
+    seed gives the same image on every device; not the JAX package's bits)."""
 
     dtype: Optional[torch.dtype] = None
     device: Optional[torch.device] = None
+    seed: int = 0
 
     def resolved_device(self) -> torch.device:
         if self.device is not None:

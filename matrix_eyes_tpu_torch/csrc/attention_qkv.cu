@@ -1,11 +1,18 @@
-// Fused-qkv multi-head attention for Hopper (sm_90a), FlashAttention-2 style.
+// Multi-head attention for Hopper (sm_90a), FlashAttention-2 style.
 //
-// Replaces the TPU kernel matrix_eyes_tpu/ops/flash_attention.py:
-// attention_flash_qkv (_attention_qkv_kernel, helpers _qk_log2 and
-// _softmax_pv). For every (batch, head) it computes
-// softmax(q k^T * scale) v, reading q, k and v as strided column ranges of
-// the (B, N, 3C) qkv projection ([q|k|v] x head x dim) and writing the
-// (B, N, C) token-major output directly: no transposes around the kernel.
+// Replaces two TPU kernels of matrix_eyes_tpu/ops/flash_attention.py with
+// one device code and two entries:
+//
+// * me_attention_qkv: attention_flash_qkv (_attention_qkv_kernel, helpers
+//   _qk_log2 and _softmax_pv). q, k and v are strided column ranges of the
+//   (B, N, 3C) qkv projection ([q|k|v] x head x dim) and the output is
+//   (B, N, C) token-major: no transposes around the kernel.
+// * me_attention_bhnd: attention_flash (_attention_kernel), separate
+//   (B, H, N, D) q, k, v and o, each with its own batch, head and token
+//   strides (the head dim has unit stride).
+//
+// For every (batch, head) both compute softmax(q k^T * scale) v; the
+// kernels address q, k, v and o only through the strides of Attn.
 //
 // What bounds it on this card: at the Depth Pro shapes (B = 35, N = 577,
 // H = 16, D = 64) the plain version writes and re-reads the (B, H, N, N)
@@ -49,6 +56,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
+// Pointers and element strides of one call. Row n of head h of batch b of
+// q starts at q + b * q_b + h * q_h + n * q_n; likewise k, v and o.
+template <typename T>
+struct Attn {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  long long q_b, q_h, q_n, k_b, k_h, k_n, v_b, v_h, v_n, o_b, o_h, o_n;
+  int N, n_valid;
+  float scale_log2;
+};
+
 // ---------------------------------------------------------------------------
 // CUDA-core path: f32, and bf16 at D = 8.
 
@@ -57,27 +77,24 @@ constexpr int BN = 32;  // keys per shared-memory tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BM)
-attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H,
-                     int n_valid, float scale_log2) {
+attention_kernel(const Attn<T> a) {
   __shared__ __align__(16) float ks[BN][D];
   __shared__ __align__(16) float vs[BN][D];
   __shared__ float qo[BM][D + 1];  // +1: thread r reads row r without bank conflicts
 
-  const int C = H * D;
-  const size_t row_stride = 3 * (size_t)C;
+  const int N = a.N, n_valid = a.n_valid;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int m0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
-  const T* base = qkv + (size_t)b * N * row_stride;
-  const T* qbase = base + (size_t)h * D;
-  const T* kbase = base + C + (size_t)h * D;
-  const T* vbase = base + 2 * (size_t)C + (size_t)h * D;
+  const T* __restrict__ qbase = a.q + b * a.q_b + h * a.q_h;
+  const T* __restrict__ kbase = a.k + b * a.k_b + h * a.k_h;
+  const T* __restrict__ vbase = a.v + b * a.v_b + h * a.v_h;
 
   for (int e = tid; e < BM * D; e += BM) {
     const int r = e / D, d = e % D;
     const int m = m0 + r;
-    qo[r][d] = m < N ? to_f32(qbase[(size_t)m * row_stride + d]) * scale_log2 : 0.f;
+    qo[r][d] = m < N ? to_f32(qbase[m * a.q_n + d]) * a.scale_log2 : 0.f;
   }
   __syncthreads();
 
@@ -95,8 +112,8 @@ attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int 
       const int r = e / D, d = e % D;
       const int j = j0 + r;
       const bool ok = j < n_valid;
-      ks[r][d] = ok ? to_f32(kbase[(size_t)j * row_stride + d]) : 0.f;
-      vs[r][d] = ok ? to_f32(vbase[(size_t)j * row_stride + d]) : 0.f;
+      ks[r][d] = ok ? to_f32(kbase[j * a.k_n + d]) : 0.f;
+      vs[r][d] = ok ? to_f32(vbase[j * a.v_n + d]) : 0.f;
     }
     __syncthreads();
 
@@ -131,17 +148,17 @@ attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int 
   for (int d = 0; d < D; ++d) qo[tid][d] = o[d] * inv_l;
   __syncthreads();
 
-  T* obase = out + (size_t)b * N * C + (size_t)h * D;
+  T* __restrict__ obase = a.o + b * a.o_b + h * a.o_h;
   for (int e = tid; e < BM * D; e += BM) {
     const int r = e / D, d = e % D;
     const int m = m0 + r;
-    if (m < N) obase[(size_t)m * C + d] = from_f32<T>(qo[r][d]);
+    if (m < N) obase[m * a.o_n + d] = from_f32<T>(qo[r][d]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // Tensor-core path: bf16, D in {32, 64}. k/v rows move as 16-byte vectors
-// (the wrapper checks the alignment).
+// (the wrappers check the alignment of every row).
 //
 // mma.sync m16n8k16 fragment layout, lane = 4 * g + t:
 //   A (16 x 16, row major): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same
@@ -171,8 +188,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int D>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
-attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                         int N, int H, int n_valid, float scale_log2) {
+attention_mma_kernel(const Attn<__nv_bfloat16> a) {
   constexpr int KS = D / 16;          // k-steps of q k^T over the head dim
   constexpr int NS = MMA_BN / 8;      // n-tiles of S over the keys
   constexpr int NO = D / 8;           // n-tiles of O over the head dim
@@ -182,17 +198,15 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
   __shared__ __align__(16) __nv_bfloat16 ks[MMA_BN * LDK];  // k tile, [key][d]
   __shared__ __align__(16) __nv_bfloat16 vt[D * LDV];       // v tile transposed, [d][key]
 
-  const int C = H * D;
-  const size_t row_stride = 3 * (size_t)C;
+  const int N = a.N, n_valid = a.n_valid;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int m0 = blockIdx.x * MMA_BM + (threadIdx.x / 32) * 16;
-  const __nv_bfloat16* base = qkv + (size_t)b * N * row_stride;
-  const __nv_bfloat16* qbase = base + (size_t)h * D;
-  const __nv_bfloat16* kbase = base + C + (size_t)h * D;
-  const __nv_bfloat16* vbase = base + 2 * (size_t)C + (size_t)h * D;
+  const __nv_bfloat16* __restrict__ qbase = a.q + b * a.q_b + h * a.q_h;
+  const __nv_bfloat16* __restrict__ kbase = a.k + b * a.k_b + h * a.k_h;
+  const __nv_bfloat16* __restrict__ vbase = a.v + b * a.v_b + h * a.v_h;
 
   // q rows m0+g and m0+g+8 as A fragments, one per 16-wide k-step
   uint32_t qf[KS][4];
@@ -202,8 +216,7 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + g + 8 * (i & 1);
       const int d = kk * 16 + 8 * (i >> 1) + 2 * t;
-      qf[kk][i] = m < N ? *reinterpret_cast<const uint32_t*>(qbase + (size_t)m * row_stride + d)
-                        : 0u;
+      qf[kk][i] = m < N ? *reinterpret_cast<const uint32_t*>(qbase + m * a.q_n + d) : 0u;
     }
 
   float o[NO][4];
@@ -223,8 +236,8 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (j < n_valid) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)j * row_stride + c);
-        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)j * row_stride + c);
+        kv = *reinterpret_cast<const uint4*>(kbase + j * a.k_n + c);
+        vv = *reinterpret_cast<const uint4*>(vbase + j * a.v_n + c);
       }
       *reinterpret_cast<uint4*>(&ks[r * LDK + c]) = kv;
       const __nv_bfloat16* vp = reinterpret_cast<const __nv_bfloat16*>(&vv);
@@ -254,7 +267,7 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = j0 + n * 8 + 2 * t + (i & 1);
-        const float v = key < n_valid ? s[n][i] * scale_log2 : -1e30f;
+        const float v = key < n_valid ? s[n][i] * a.scale_log2 : -1e30f;
         s[n][i] = v;
         m_tile[i >> 1] = fmaxf(m_tile[i >> 1], v);
       }
@@ -307,14 +320,14 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv_l[r] = 1.f / l_run[r];
   }
-  __nv_bfloat16* obase = out + (size_t)b * N * C + (size_t)h * D;
+  __nv_bfloat16* __restrict__ obase = a.o + b * a.o_b + h * a.o_h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int m = m0 + g + 8 * r;
     if (m >= N) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)m * C + n * 8 + 2 * t) =
+      *reinterpret_cast<__nv_bfloat162*>(obase + m * a.o_n + n * 8 + 2 * t) =
           __floats2bfloat162_rn(o[n][2 * r] * inv_l[r], o[n][2 * r + 1] * inv_l[r]);
   }
 }
@@ -322,53 +335,83 @@ attention_qkv_mma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* _
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-void launch(const void* qkv, void* out, int B, int N, int H, int n_valid, float scale_log2,
-            cudaStream_t stream) {
-  const dim3 grid((N + BM - 1) / BM, H, B);
-  attention_qkv_kernel<T, D><<<grid, BM, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, H, n_valid, scale_log2);
+void launch(const Attn<T>& a, int B, int H, cudaStream_t stream) {
+  const dim3 grid((a.N + BM - 1) / BM, H, B);
+  attention_kernel<T, D><<<grid, BM, 0, stream>>>(a);
 }
 
 template <int D>
-void launch_mma(const void* qkv, void* out, int B, int N, int H, int n_valid, float scale_log2,
-                cudaStream_t stream) {
-  const dim3 grid((N + MMA_BM - 1) / MMA_BM, H, B);
-  attention_qkv_mma_kernel<D><<<grid, MMA_WARPS * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), N, H,
-      n_valid, scale_log2);
+void launch_mma(const Attn<__nv_bfloat16>& a, int B, int H, cudaStream_t stream) {
+  const dim3 grid((a.N + MMA_BM - 1) / MMA_BM, H, B);
+  attention_mma_kernel<D><<<grid, MMA_WARPS * 32, 0, stream>>>(a);
 }
 
-int dispatch_f32(const void* qkv, void* out, int B, int N, int H, int D, int n_valid,
-                 float scale_log2, cudaStream_t stream) {
+int dispatch(const Attn<float>& a, int B, int H, int D, cudaStream_t stream) {
   switch (D) {
-    case 8: launch<float, 8>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
-    case 32: launch<float, 32>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
-    case 64: launch<float, 64>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
+    case 8: launch<float, 8>(a, B, H, stream); break;
+    case 32: launch<float, 32>(a, B, H, stream); break;
+    case 64: launch<float, 64>(a, B, H, stream); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_bf16(const void* qkv, void* out, int B, int N, int H, int D, int n_valid,
-                  float scale_log2, cudaStream_t stream) {
+int dispatch(const Attn<__nv_bfloat16>& a, int B, int H, int D, cudaStream_t stream) {
   switch (D) {
-    case 8: launch<__nv_bfloat16, 8>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
-    case 32: launch_mma<32>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
-    case 64: launch_mma<64>(qkv, out, B, N, H, n_valid, scale_log2, stream); break;
+    case 8: launch<__nv_bfloat16, 8>(a, B, H, stream); break;
+    case 32: launch_mma<32>(a, B, H, stream); break;
+    case 64: launch_mma<64>(a, B, H, stream); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// q/k/v as column ranges of the (B, N, 3C) qkv buffer, o as (B, N, C)
+template <typename T>
+int run_qkv(const void* qkv, void* out, int B, int N, int H, int D, int n_valid,
+            float scale_log2, cudaStream_t stream) {
+  const long long C = (long long)H * D;
+  const T* base = static_cast<const T*>(qkv);
+  const Attn<T> a{base, base + C, base + 2 * C, static_cast<T*>(out),
+                  N * 3 * C, D, 3 * C, N * 3 * C, D, 3 * C, N * 3 * C, D, 3 * C,
+                  N * C, D, C, N, n_valid, scale_log2};
+  return dispatch(a, B, H, D, stream);
+}
+
+// strides: q, k, v, o, each (batch, head, token), in elements
+template <typename T>
+int run_bhnd(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int D,
+             int n_valid, float scale_log2, const long long* st, cudaStream_t stream) {
+  const Attn<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<T*>(o), st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                  st[8], st[9], st[10], st[11], N, n_valid, scale_log2};
+  return dispatch(a, B, H, D, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch, or a negative code for arguments the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. Both entries return cudaGetLastError()
+// after the launch, or a negative code for arguments the kernel does not
+// take.
 extern "C" int me_attention_qkv(const void* qkv, void* out, int B, int N, int H, int D,
                                 int n_valid, float scale_log2, int dtype, void* stream) {
   if (B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(qkv, out, B, N, H, D, n_valid, scale_log2, st);
-  if (dtype == 1) return dispatch_bf16(qkv, out, B, N, H, D, n_valid, scale_log2, st);
+  if (dtype == 0) return run_qkv<float>(qkv, out, B, N, H, D, n_valid, scale_log2, st);
+  if (dtype == 1) return run_qkv<__nv_bfloat16>(qkv, out, B, N, H, D, n_valid, scale_log2, st);
+  return -3;
+}
+
+// q, k, v, o: (B, H, N, D) with unit stride on D; strides[12] holds the
+// (batch, head, token) element strides of q, k, v and o in that order.
+extern "C" int me_attention_bhnd(const void* q, const void* k, const void* v, void* o, int B,
+                                 int H, int N, int D, int n_valid, float scale_log2, int dtype,
+                                 const long long* strides, void* stream) {
+  if (B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N) return -2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_bhnd<float>(q, k, v, o, B, H, N, D, n_valid, scale_log2, strides, st);
+  if (dtype == 1)
+    return run_bhnd<__nv_bfloat16>(q, k, v, o, B, H, N, D, n_valid, scale_log2, strides, st);
   return -3;
 }

@@ -1,13 +1,17 @@
-"""Fused-qkv attention: the Hopper kernel (``csrc/attention_qkv.cu``) and
-its plain version.
+"""Attention: the Hopper kernel (``csrc/attention_qkv.cu``) behind two
+entries, and their plain versions.
 
-Port of ``matrix_eyes_tpu/ops/flash_attention.py:attention_flash_qkv``.
-The kernel reads q, k and v straight out of the (B, N, 3C) qkv projection
-and writes the (B, N, C) output, so the (B, H, N, N) score tensor never
-touches device memory. It takes any token count (577 as it is: no token
-padding) and the head sizes of every config: 8, 32 and 64. The TPU
-kernel's lane grouping of heads is not needed here: a block serves one
-head.
+* ``attention_qkv``, port of ``matrix_eyes_tpu/ops/flash_attention.py:
+  attention_flash_qkv``: reads q, k and v straight out of the (B, N, 3C)
+  qkv projection and writes the (B, N, C) output. The ViT calls this one.
+* ``attention_flash``, port of ``attention_flash``: separate (B, H, N, D)
+  q, k, v, each read through its own strides, so permuted views need no
+  copy.
+
+Either way the (B, H, N, N) score tensor never touches device memory. The
+kernel takes any token count (577 as it is: no token padding) and the head
+sizes of every config: 8, 32 and 64. The TPU kernel's lane grouping of
+heads is not needed here: a block serves one head.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.ops.attention import attention_qkv_xla as attention_qkv_plain
+from matrix_eyes_tpu_torch.ops.attention import attention_xla as attention_flash_plain
 
 HEAD_DIMS = (8, 32, 64)  # TINY, MID, DEPTH_PRO
 _LOG2E = 1.4426950408889634  # exp(x) = exp2(x * log2 e)
@@ -30,9 +35,17 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_float, ctypes.c_int,             # n_valid, scale*log2e, dtype
         ctypes.c_void_p,                                        # stream
     ]),
+    "me_attention_bhnd": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, N, D
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,             # n_valid, scale*log2e, dtype
+        ctypes.POINTER(ctypes.c_longlong),                      # 12 (b, h, n) strides
+        ctypes.c_void_p,                                        # stream
+    ]),
 }
 
-__all__ = ["attention_qkv", "attention_qkv_plain", "HEAD_DIMS"]
+__all__ = ["attention_qkv", "attention_qkv_plain", "attention_flash", "attention_flash_plain",
+           "HEAD_DIMS"]
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -75,3 +88,51 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 attention_qkv.launches = 0
+
+
+def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    n_valid: Optional[int] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v per (batch, head) on separate (B, H, N, D)
+    q, k, v; returns a new contiguous (B, H, N, D). Keys at or past
+    ``n_valid`` (default N) are masked with -1e30.
+
+    Every operand needs a unit stride on D and 16-byte aligned rows (data
+    pointer and batch, head and token strides); anything else raises, on
+    every device, rather than being copied into another layout. A CUDA
+    tensor goes to the kernel (or raises); a CPU tensor goes to the plain
+    version."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, N, D = q.shape
+    n_valid = N if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= N:
+        raise ValueError(f"n_valid must be in [1, {N}], got {n_valid}")
+    for t in (q, k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("attention_flash operands must share one dtype and device")
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                t.stride(i) * t.element_size() % 16 for i in range(3)):
+            raise ValueError("attention_flash needs a unit stride on D and 16-byte aligned "
+                             f"rows, got strides {t.stride()}")
+    if q.device.type == "cpu":
+        return attention_flash_plain(q, k, v, scale, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_flash runs on CUDA or CPU tensors, got {q.device}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head dims {HEAD_DIMS}, got {D}")
+    code = _build.dtype_code(q.dtype)
+    lib = _build.load("attention_qkv", _SIGNATURES)
+    out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.me_attention_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   B, H, N, D, n_valid, float(scale) * _LOG2E, code, strides,
+                                   stream)
+    _build.check_launch(rc, "attention_flash")
+    attention_flash.launches += 1
+    return out
+
+
+attention_flash.launches = 0

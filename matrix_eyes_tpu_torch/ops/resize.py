@@ -9,7 +9,10 @@ copied: the JAX module imports jax):
 * ``resize_lanczos3``: the image crate's Lanczos3 resampler as two f32
   matmuls, vertical pass then horizontal pass;
 * ``to_u8``: round half away from zero (``floor(x + 0.5)``, not
-  ``torch.round``, which rounds half to even) and clamp.
+  ``torch.round``, which rounds half to even) and clamp;
+* ``depthmap_bilinear_resample``: the stereogram's sampling of the depth
+  grid at every output pixel, as two f32 matmuls (TF32 must stay off, see
+  ``config.configure_precision``: the shift plane rounds these values).
 """
 
 from __future__ import annotations
@@ -85,3 +88,31 @@ def to_u8(img_f32: torch.Tensor) -> torch.Tensor:
     """Round half away from zero (values are non-negative) and clamp to
     [0, 255], the image crate's float-to-u8 conversion."""
     return torch.clamp(torch.floor(img_f32 + 0.5), 0.0, 255.0).to(torch.uint8)
+
+
+@lru_cache(maxsize=32)
+def _depthmap_bilinear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Per-axis sampling matrix for DepthMap.interpolate_point (output.rs:83-98).
+
+    For output position o in [0, n_out): normalised coord o/n_out, scaled by
+    n_in (no half-pixel shift), floor/ceil taps clamped to [0, n_in-1],
+    linear weights from the fractional part.
+    """
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    for o in range(n_out):
+        x = max((o / n_out) * n_in, 0.0)
+        x0 = min(int(math.floor(x)), n_in - 1)
+        x1 = min(x0 + 1, n_in - 1)
+        f = x - math.floor(x)
+        m[o, x0] += np.float32(1.0 - f)
+        m[o, x1] += np.float32(f)
+    return m
+
+
+def depthmap_bilinear_resample(depth: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Sample a (H, W) depth grid at every pixel of the (out_h, out_w)
+    output: rows, then columns, each an f32 matmul."""
+    H, W = depth.shape
+    rv = torch.from_numpy(_depthmap_bilinear_matrix(H, out_h)).to(depth.device)
+    rh = torch.from_numpy(_depthmap_bilinear_matrix(W, out_w)).to(depth.device)
+    return (rv @ depth.float()) @ rh.T

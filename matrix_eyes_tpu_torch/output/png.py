@@ -1,11 +1,14 @@
-"""PNG serialisation of depth maps (port of the depth-map part of
+"""PNG serialisation of depth maps and stereograms (port of
 ``matrix_eyes_tpu/output/png.py``).
 
 The native striped encoder and the native host Lanczos3 resizer are
 imported from the JAX package's ``native`` modules, which are jax-free.
-Depth maps are encoded with the fixed Up filter at zlib level 1 in
-ENCODE_ROWS stripes, so the bytes match the JAX package's for the same
-pixels. Without the native encoder, PIL writes the file.
+Images are encoded in ENCODE_ROWS stripes at zlib level 1, depth maps with
+the fixed Up filter and stereograms with filter None (their pixel chains
+are long exact LZ matches that row filters would obscure), so the bytes
+match the JAX package's for the same pixels. A stereogram in its compact
+(shift, noise) form is encoded by the native encoder, which replays the
+linker scan per stripe. Without the native encoder, PIL writes the file.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from matrix_eyes_tpu.errors import OutputError
 from matrix_eyes_tpu.native import pngwriter
 
 DEPTH_MAP = {"level": 1, "filter": pngwriter.FILTER_UP}
+STEREOGRAM = {"level": 1, "filter": pngwriter.FILTER_NONE}
 ENCODE_ROWS = 256
 
 
@@ -31,10 +35,16 @@ def host_resize_supported() -> bool:
     return pngwriter.available() and lanczos.available()
 
 
-def _encode(rgb: np.ndarray, path: str) -> None:
+def split_supported() -> bool:
+    """Whether the compact (shift, noise) stereogram save can run: the
+    linker-scan replay lives in the native encoder."""
+    return pngwriter.available()
+
+
+def _encode(rgb: np.ndarray, path: str, profile: dict) -> None:
     h, w = rgb.shape[:2]
     try:
-        with pngwriter.PngEncoder(path, w, h, **DEPTH_MAP) as enc:
+        with pngwriter.PngEncoder(path, w, h, **profile) as enc:
             for stripe in _host_stripes(rgb):
                 enc.write_rows(stripe)
     except OSError as e:
@@ -51,15 +61,30 @@ def save_depthmap_host_resize(grid: np.ndarray, path: str, out_h: int, out_w: in
         full = lanczos.resize_rgb8(grid, out_h, out_w)
     except OSError as e:
         raise OutputError(f"Image error: {e}") from e
-    _encode(full, path)
+    _encode(full, path, DEPTH_MAP)
 
 
-def save_rgb(rgb: np.ndarray, path: str) -> None:
-    """Encode a full-size (H, W, 3) u8 depth-map image."""
+def save_rgb(rgb: np.ndarray, path: str, profile: dict = DEPTH_MAP) -> None:
+    """Encode a full-size (H, W, 3) u8 image under ``profile`` (DEPTH_MAP
+    or STEREOGRAM); PIL at the profile's level without the native encoder."""
     if pngwriter.available():
-        _encode(np.ascontiguousarray(rgb), path)
+        _encode(np.ascontiguousarray(rgb), path, profile)
     else:
-        pil_save(rgb, path, compress_level=DEPTH_MAP["level"])
+        pil_save(rgb, path, compress_level=profile["level"])
+
+
+def save_stereogram_split(shift: np.ndarray, noise: np.ndarray, path: str, pw: int) -> None:
+    """Encode a stereogram from its compact form, shift (H, W) u8 and noise
+    (H, pw, 3) u8 on the host: both are sliced in lockstep at ENCODE_ROWS
+    (noise is per row, so rows align) and the native worker pool replays
+    the reference linker scan and compresses the stripes in parallel."""
+    h, w = shift.shape
+    try:
+        with pngwriter.PngEncoder(path, w, h, **STEREOGRAM) as enc:
+            for ss, ns in zip(_host_stripes(shift), _host_stripes(noise)):
+                enc.write_stereo_rows(ss, ns, pw)
+    except OSError as e:
+        raise OutputError(f"Image error: {e}") from e
 
 
 def pil_save(rgb: np.ndarray, path: str, **kw) -> None:

@@ -1,4 +1,4 @@
-"""Single-image pipeline: photo -> depth -> viridis depth-map file.
+"""Single-image pipeline: photo -> depth -> depth-map or stereogram file.
 
 Port of ``matrix_eyes_tpu/pipeline.py`` (``preprocess_image`` and
 ``extract_depth``): decode the source image on the host, preprocess on the
@@ -23,7 +23,7 @@ from matrix_eyes_tpu.progress import SplitProgressListener
 from matrix_eyes_tpu_torch.config import ModelConfig, RuntimeConfig, configure_precision
 from matrix_eyes_tpu_torch.models import depth_pro
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
-from matrix_eyes_tpu_torch.output.depthmap import DepthMap
+from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat
 
 
 def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
@@ -43,13 +43,17 @@ def extract_depth(
     source_path: str,
     destination_path: str,
     focal_length_35mm: Optional[float] = None,
+    image_format: ImageOutputFormat = ImageOutputFormat.DEPTH_MAP,
+    resize_scale: Optional[float] = None,
+    stereo_amplitude: float = 1.0 / 16.0,
     runtime: Optional[RuntimeConfig] = None,
     progress=None,
     source: Optional[SourceImage] = None,
-) -> None:
-    """Full pipeline for one image. ``params`` must already lie on the
-    runtime's device; ``source``, when given, is the decoded image and
-    ``source_path`` is not read."""
+) -> DepthMap:
+    """Full pipeline for one image; returns the DepthMap it wrote.
+    ``params`` must already lie on the runtime's device; ``source``, when
+    given, is the decoded image and ``source_path`` is not read. A
+    stereogram's noise comes from ``runtime.seed``."""
     runtime = runtime or RuntimeConfig()
     device = runtime.resolved_device()
     dtype = runtime.resolved_dtype()
@@ -88,7 +92,10 @@ def extract_depth(
 
     pl_out.update_message("writing output")
     try:
-        depth_map.output_image(destination_path)
+        depth_map.output_image(destination_path, image_format=image_format,
+                               resize_scale=resize_scale, amplitude=stereo_amplitude,
+                               seed=runtime.seed)
     except Exception as err:
         raise stage_error("Failed to output result", err, "output") from err
     pl_out.report_status(1.0)
+    return depth_map

@@ -19,13 +19,14 @@ from matrix_eyes_tpu.ops import nn as jnn
 from matrix_eyes_tpu.ops import resize as jresize
 from matrix_eyes_tpu.ops.attention import attention_xla as j_attention_xla
 from matrix_eyes_tpu.ops.conv3x3 import conv3x3_pallas
+from matrix_eyes_tpu.ops.flash_attention import attention_flash as j_attention_flash
 from matrix_eyes_tpu.ops.flash_attention import attention_flash_qkv
 from matrix_eyes_tpu_torch.ops import colormap as tcolormap
 from matrix_eyes_tpu_torch.ops import nn as tnn
 from matrix_eyes_tpu_torch.ops import resize as tresize
 from matrix_eyes_tpu_torch.ops.attention import attention_xla as t_attention_xla
 from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
 
 
 def _u(rng, shape, lo=-1.0, hi=1.0):
@@ -51,6 +52,19 @@ def test_attention_qkv_plain_matches_pallas(N, n_valid):
     qkv = _u(rng, (B, N, 3 * H * D))
     want = attention_flash_qkv(jnp.asarray(qkv), H, 0.125, n_valid=n_valid, interpret=True)
     got = attention_qkv(torch.from_numpy(qkv), H, 0.125, n_valid)
+    _close(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("D", [8, 32])  # TINY and MID heads
+@pytest.mark.parametrize("N,n_valid", [(577, 570), (70, 64)])
+def test_attention_flash_plain_matches_pallas(D, N, n_valid):
+    B, H = 2, 2
+    rng = np.random.RandomState(N + D)
+    q, k, v = (_u(rng, (B, H, N, D)) for _ in range(3))
+    want = j_attention_flash(*(jnp.asarray(a) for a in (q, k, v)), D ** -0.5, n_valid=n_valid,
+                             interpret=True)
+    got = attention_flash(*(torch.from_numpy(a) for a in (q, k, v)), D ** -0.5, n_valid)
+    assert tuple(got.shape) == (B, H, N, D)
     _close(got, want, rtol=2e-5, atol=2e-6)
 
 
@@ -106,12 +120,15 @@ def test_conv3x3_unaligned_matches_jax_conv(cin, cout, relu_in, with_skip):
 def test_wrappers_take_only_cpu_or_cuda_tensors():
     # a CPU tensor runs the plain version and counts no launch; any other
     # device raises instead of falling back
-    before = (attention_qkv.launches, conv3x3.launches)
+    before = (attention_qkv.launches, attention_flash.launches, conv3x3.launches)
     attention_qkv(torch.zeros(1, 5, 3 * 2 * 8), 2, 0.5)
+    attention_flash(*(torch.zeros(1, 2, 5, 8) for _ in range(3)), 0.5)
     conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 4))
-    assert (attention_qkv.launches, conv3x3.launches) == before
+    assert (attention_qkv.launches, attention_flash.launches, conv3x3.launches) == before
     with pytest.raises(ValueError):
         attention_qkv(torch.zeros(1, 5, 48, device="meta"), 2, 0.5)
+    with pytest.raises(ValueError):
+        attention_flash(*(torch.zeros(1, 2, 5, 8, device="meta") for _ in range(3)), 0.5)
     with pytest.raises(ValueError):
         conv3x3(torch.zeros(1, 4, 4, 8, device="meta"), torch.zeros(3, 3, 8, 4, device="meta"))
 
@@ -119,6 +136,12 @@ def test_wrappers_take_only_cpu_or_cuda_tensors():
 @pytest.mark.parametrize("bad", [
     lambda: attention_qkv(torch.zeros(1, 5, 47), 2, 0.5),           # not 3 * H * D
     lambda: attention_qkv(torch.zeros(1, 5, 48), 2, 0.5, n_valid=6),  # n_valid > N
+    lambda: attention_flash(torch.zeros(1, 2, 5, 8), torch.zeros(1, 2, 6, 8),
+                            torch.zeros(1, 2, 5, 8), 0.5),            # k shape
+    lambda: attention_flash(*(torch.zeros(1, 2, 8, 5).transpose(2, 3) for _ in range(3)),
+                            0.5),                                     # D stride != 1
+    lambda: attention_flash(*(torch.zeros(1, 2, 5, 9)[..., :7] for _ in range(3)),
+                            0.5),                                     # rows not 16-byte aligned
     lambda: conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 7, 4)),  # Cin mismatch
     lambda: conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 4),
                     skip=torch.zeros(1, 4, 4, 5)),                    # skip shape

@@ -132,11 +132,14 @@ def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     ["--focal-length", "a.jpg", "b.png"],          # flag without value
     ["--focal-length=abc", "a.jpg", "b.png"],      # bad value
     ["--dtype=int8", "a.jpg", "b.png"],            # dtype policy not ported
-    ["--image-output-format=stereogram", "a.jpg", "b.png"],  # output not ported
+    ["--devices=2", "a.jpg", "b.png"],             # flag not ported
     ["--mesh=plain", "a.jpg", "b.png"],            # flag not ported
     ["--batch-size=2", "a.jpg", "b.png"],          # flag not ported
     ["a.jpg", "b.obj"],                            # mesh output not ported
     ["a.jpg", "b.png", "--focal-length=28"],       # options only before positionals
+    ["--seed=abc", "a.jpg", "b.png"],              # bad value
+    ["--resize-scale=x", "a.jpg", "b.png"],        # bad value
+    ["--image-output-format=bogus", "a.jpg", "b.png"],  # unknown output format
 ])
 def test_cli_bad_arguments_exit_2(argv):
     out, err = io.StringIO(), io.StringIO()
@@ -178,6 +181,9 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import matrix_eyes_tpu_torch.cli, matrix_eyes_tpu_torch.pipeline\n"
             "import matrix_eyes_tpu_torch.pt.convert, matrix_eyes_tpu_torch.models.init\n"
+            "import matrix_eyes_tpu_torch.ops.stereogram, matrix_eyes_tpu_torch.ops.stereogram_kernel\n"
+            "import matrix_eyes_tpu_torch.output.depthmap, matrix_eyes_tpu_torch.output.png\n"
+            "import matrix_eyes_tpu_torch.ops.flash_attention\n"
             "sys.exit(int('jax' in sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
