@@ -9,14 +9,23 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 1. environment: versions, the card, its power limit, host encoders;
 2. build the three CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
-   nvcc each, all at once);
+   nvcc each, all at once), and print ptxas's registers, spills and the
+   dynamic shared memory of the tensor-core kernels;
 3. each kernel entry against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with errors and warm times:
-   attention_qkv, attention_flash (the separate-q/k/v entry into the same
-   kernel), conv3x3, and linker_scan (bit-exact);
+   shapes the main path gives it, with errors and warm times, the least
+   time the card could take (``bound_ms``: the larger of the bytes over
+   3.35 TB/s and the FLOPs over 989 TFLOP/s bf16 or 67 TFLOP/s f32) and,
+   where one PyTorch call computes the same function, that call's time
+   (``library_ms``: ``F.conv2d`` on the channels-last view with bias,
+   SDPA on contiguous (B, H, N, D); timing yardsticks the port never
+   calls): attention_qkv, attention_flash (the separate-q/k/v entry into
+   the same kernel; K and V kept whole and streamed), conv3x3 at every
+   distinct conv shape of the DEPTH_PRO forward, and linker_scan
+   (bit-exact);
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
    photo at full DEPTH_PRO width (seeded random weights, bf16): launch
-   counts, finite inverse depth, a 4032x3024 PNG;
+   counts, conv3x3's launches by shape (which weight phase 3's times into
+   per-forward sums), finite inverse depth, a 4032x3024 PNG;
 5. the port on the card against the port on the CPU (plain versions) at
    MID, f32;
 6. the stereogram path on the phase-4 photo and weights, each run twice:
@@ -35,7 +44,8 @@ its ``launches`` is the depth-map run's count, 0.
 
 The last lines are the kernels' summary (JSON), the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``. The
-run fails without CUDA, and outside a checkout of the repository.
+run fails without CUDA, outside a checkout of the repository, and if the
+port loaded jax or any module of the JAX package.
 """
 
 from __future__ import annotations
@@ -66,11 +76,20 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
 
 STEREO_SEED = 7
 
+# the H100 SXM's dense peaks (NVIDIA data sheet, 700 W): bound_ms is the
+# larger of the bytes a call must move and the FLOPs it must do over these
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}  # tensor cores; f32 on CUDA cores
+
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
     (35, 577, 16, 64, "f32", None),    # patch ViT under --dtype f32
     (1, 577, 16, 64, "f32", None),     # FOV ViT (f32 under every dtype)
+    (1, 577, 16, 64, "bf16", None),    # image ViT
     (1, 577, 16, 64, "bf16", 500),     # keys past n_valid masked
+    (35, 1025, 16, 64, "bf16", None),  # vit_img_size 512: K and V stream through the ring
+    (2, 1025, 16, 64, "bf16", 1000),   # the same, few heads: idle warpgroups in a round
+    (2, 1700, 4, 32, "bf16", 1650),    # MID heads past the 1536 keys kept whole
     (3, 70, 2, 8, "f32", None),        # TINY heads, ragged N
     (35, 65, 4, 32, "f32", None),      # MID heads
     (2, 130, 4, 32, "bf16", 100),      # MID heads, ragged N, masked
@@ -79,6 +98,7 @@ FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffe
     (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
     (1, 16, 577, 64, "bf16", 500, False),   # keys past n_valid masked
     (2, 4, 130, 32, "bf16", 100, False),    # MID heads, ragged N, masked
+    (2, 16, 1025, 64, "bf16", 1000, False),  # K and V streamed, masked
     (3, 2, 70, 8, "f32", None, False),      # TINY heads, ragged N
 ]
 LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
@@ -91,14 +111,36 @@ LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
     (4, 20, 0.6),           # pw > W: noise only
     (3, 30000, 0.45),       # pw 27000: rings past shared memory's size
 ]
-CONV_SHAPES = [  # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias)
-    (1, 768, 768, 256, 256, "bf16", True, 2, True),   # fused RCU, the hot shape
-    (1, 768, 768, 129, 128, "bf16", False, 0, True),  # head's composed conv
-    (1, 768, 768, 256, 128, "bf16", False, 0, True),  # head conv0
-    (1, 48, 48, 1024, 256, "bf16", False, 0, False),  # decoder projection
-    (1, 96, 96, 256, 256, "f32", True, 2, True),      # RCU under --dtype f32
-    (2, 7, 9, 8, 4, "f32", True, 1, True),            # TINY channels, odd sizes
-    (1, 5, 3, 129, 128, "f32", False, 0, True),       # 129 channels, tiny grid
+# (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
+# forward or None): every distinct conv of the forward (4 projections, 18
+# residual-unit convs, the head's 2), then shapes off the main path. The
+# launches column is what the depth-map run must show, shape by shape
+# (conv3x3.launches_by_shape); the per-forward sums weight by that count.
+CONV_SHAPES = [
+    (1, 768, 768, 256, 256, "bf16", True, 2, True, 1),    # fused RCU, the hot shape
+    (1, 768, 768, 256, 256, "bf16", True, 1, True, 1),    # RCU conv2, one residual
+    (1, 768, 768, 256, 256, "bf16", True, 0, True, 2),    # RCU conv1
+    (1, 768, 768, 256, 128, "bf16", False, 0, True, 1),   # head conv0
+    (1, 768, 768, 136, 128, "bf16", False, 0, True, 1),   # head's composed conv
+    (1, 384, 384, 256, 256, "bf16", False, 0, False, 1),  # projection
+    (1, 384, 384, 256, 256, "bf16", True, 2, True, 1),
+    (1, 384, 384, 256, 256, "bf16", True, 1, True, 1),
+    (1, 384, 384, 256, 256, "bf16", True, 0, True, 2),
+    (1, 192, 192, 512, 256, "bf16", False, 0, False, 1),  # projection
+    (1, 192, 192, 256, 256, "bf16", True, 2, True, 1),
+    (1, 192, 192, 256, 256, "bf16", True, 1, True, 1),
+    (1, 192, 192, 256, 256, "bf16", True, 0, True, 2),
+    (1, 96, 96, 1024, 256, "bf16", False, 0, False, 1),   # projection
+    (1, 96, 96, 256, 256, "bf16", True, 2, True, 1),
+    (1, 96, 96, 256, 256, "bf16", True, 1, True, 1),
+    (1, 96, 96, 256, 256, "bf16", True, 0, True, 2),
+    (1, 48, 48, 1024, 256, "bf16", False, 0, False, 1),   # projection, K = 9216
+    (1, 48, 48, 256, 256, "bf16", True, 1, True, 1),
+    (1, 48, 48, 256, 256, "bf16", True, 0, True, 1),
+    (1, 96, 96, 256, 256, "f32", True, 2, True, None),    # RCU under --dtype f32
+    (2, 7, 9, 8, 4, "f32", True, 1, True, None),          # TINY channels, odd sizes
+    (2, 7, 9, 12, 5, "bf16", True, 2, True, None),        # odd channels: padded to 8
+    (1, 5, 3, 129, 128, "f32", False, 0, True, None),     # 129 channels, tiny grid
 ]
 
 
@@ -114,15 +156,19 @@ def kernel_wrappers() -> dict:
 
 def counted_run(fn):
     """Run fn with every launch counter set to 0 just before it; return its
-    result and the counts just after ({kernel: launches})."""
+    result, the counts just after ({kernel: launches}) and conv3x3's
+    launches by shape ({(B, H, W, Cin, Cout, dtype, relu_in, residuals,
+    bias): launches})."""
     import torch
 
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+    wrappers["conv3x3"].launches_by_shape.clear()
     result = fn()
     torch.cuda.synchronize()
-    return result, {name: w.launches for name, w in wrappers.items()}
+    return (result, {name: w.launches for name, w in wrappers.items()},
+            dict(wrappers["conv3x3"].launches_by_shape))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -179,7 +225,7 @@ def phase_environment() -> str:
     print(f"[1] device {name}, capability {cap}, count {torch.cuda.device_count()}")
     print(f"[1] nvidia-smi: {smi}")
     require(cap == (9, 0), f"expected a Hopper card (capability (9, 0)), got {cap}")
-    from matrix_eyes_tpu.native import lanczos, pngwriter
+    from matrix_eyes_tpu_torch.native import lanczos, pngwriter
 
     try:
         import PIL  # noqa: F401
@@ -191,7 +237,39 @@ def phase_environment() -> str:
     return smi
 
 
+_NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_splitk_reduce", "attention_wgmma_kernel")
+
+
+def _ptxas_lines(report: str) -> list:
+    """ptxas's registers, barriers and spills for the tensor-core kernels,
+    one line each, with the template arguments read off the mangled name."""
+    import re
+
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = next((k for k in _NEW_KERNELS if k in mangled), None)
+            name = None
+            if base:
+                rest = mangled.split(base, 1)[1]
+                args = re.findall(r"L[ib](\d+)E", rest.split("EEv", 1)[0]) if rest.startswith(
+                    "I") else []
+                name = base + (f"<{', '.join(args)}>" if args else "")
+                spill = ""
+            continue
+        if name and "spill stores" in line:
+            spill = line.strip()
+        elif name and line.strip().startswith("ptxas info    : Used"):
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def phase_build() -> None:
+    import ctypes
+
     from matrix_eyes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -200,6 +278,24 @@ def phase_build() -> None:
         paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
+    for name in ("conv3x3", "attention_qkv"):
+        for line in _ptxas_lines(_build.ptxas_report(name)):
+            print(f"[2] ptxas {line}")
+    conv = ctypes.CDLL(paths[1])
+    attn = ctypes.CDLL(paths[0])
+    print(f"[2] dynamic shared memory per block: conv3x3_wgmma_kernel<256> "
+          f"{conv.me_conv3x3_smem_bytes(256)} B, <128> {conv.me_conv3x3_smem_bytes(128)} B; "
+          f"attention_wgmma_kernel<64> at 577 keys {attn.me_attention_smem_bytes(64, 577)} B, "
+          f"<32> at 577 keys {attn.me_attention_smem_bytes(32, 577)} B; streamed K/V ring "
+          f"<64> at 1025 keys {attn.me_attention_smem_bytes(64, 1025)} B")
+
+
+def bound_ms(flops: float, nbytes: float, dt: str) -> tuple:
+    """(least ms, what bounds it): the larger of bytes over the memory rate
+    and FLOPs over the peak rate for dt."""
+    t_ops = flops / PEAK_FLOPS_S[dt] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_kernels(dev) -> dict:
@@ -220,6 +316,18 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     hot = {}
     failures = []
+
+    def attention_bound(B, N, H, D, dt, n_valid):
+        nv = N if n_valid is None else n_valid
+        e = 2 if dt == "bf16" else 4
+        # q and o over N rows, k and v over the n_valid keys that count
+        return bound_ms(4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e, dt)
+
+    def sdpa_ms(q, k, v, scale, n_valid, reps):
+        nv = q.shape[2] if n_valid is None else n_valid
+        k, v = k[:, :, :nv].contiguous(), v[:, :, :nv].contiguous()
+        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps)
+
     for B, N, H, D, dt, n_valid in ATTENTION_SHAPES:
         dtype = dtypes[dt]
         qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=gen).to(dtype)
@@ -229,17 +337,17 @@ def phase_kernels(dev) -> dict:
         reps = 10 if B * N > 1000 else 50
         res["ms"] = time_ms(lambda: attention_qkv(qkv, H, scale, n_valid), reps)
         res["plain_ms"] = time_ms(lambda: attention_qkv_plain(qkv, H, scale, n_valid), reps)
-        extra = ""
+        q, k, v = (t.contiguous() for t in qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+        res["library_ms"] = sdpa_ms(q, k, v, scale, n_valid, reps)
+        res["bound_ms"], res["bound_by"] = attention_bound(B, N, H, D, dt, n_valid)
+        res["shape"] = f"B={B} N={N} H={H} D={D} {dt} n_valid={n_valid}"
         if (B, N, dt, n_valid) == (35, 577, "bf16", None):
-            q, k, v = (t.contiguous() for t in
-                       qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
-            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), reps)
-            extra = f" sdpa_ms(timing reference only)={sdpa:.4f}"
             hot["attention_qkv"] = res
-        print(f"[3] attention B={B} N={N} H={H} D={D} {dt} n_valid={n_valid}: "
-              f"max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
-              f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-              f"{extra} {'ok' if res['ok'] else 'FAIL'}")
+        print(f"[3] attention {res['shape']}: max_abs={res['max_abs_err']:.3e} "
+              f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
+              f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"library_ms(sdpa)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"attention {B, N, H, D, dt, n_valid}")
     for B, H, N, D, dt, n_valid, views in FLASH_SHAPES:
@@ -256,12 +364,17 @@ def phase_kernels(dev) -> dict:
         reps = 10 if B * N > 1000 else 50
         res["ms"] = time_ms(lambda: attention_flash(q, k, v, scale, n_valid), reps)
         res["plain_ms"] = time_ms(lambda: attention_flash_plain(q, k, v, scale, n_valid), reps)
+        res["library_ms"] = sdpa_ms(q.contiguous(), k.contiguous(), v.contiguous(), scale,
+                                    n_valid, reps)
+        res["bound_ms"], res["bound_by"] = attention_bound(B, N, H, D, dt, n_valid)
+        res["shape"] = f"B={B} H={H} N={N} D={D} {dt} n_valid={n_valid} views={views}"
         if views:
             hot["attention_flash"] = res
-        print(f"[3] attention_flash B={B} H={H} N={N} D={D} {dt} n_valid={n_valid} "
-              f"views={views}: max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
-              f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"{'ok' if res['ok'] else 'FAIL'}")
+        print(f"[3] attention_flash {res['shape']}: max_abs={res['max_abs_err']:.3e} "
+              f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
+              f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"library_ms(sdpa)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"attention_flash {B, H, N, D, dt, n_valid}")
     for H, W, amplitude in LINKER_SHAPES:
@@ -278,14 +391,20 @@ def phase_kernels(dev) -> dict:
         reps = 10 if H * W > 100_000 else 50
         res["ms"] = time_ms(lambda: linker_scan(shift, noise, pw, win), reps)
         res["plain_ms"] = time_ms(lambda: linker_scan_plain(shift, noise, pw, win), reps)
+        res["library_ms"] = None  # no PyTorch call computes the scan
+        # int32 shifts and u8 noise read, u8 RGB written; no arithmetic to speak of
+        res["bound_ms"], res["bound_by"] = bound_ms(0.0, H * W * 4 + H * pw * 3 + H * W * 3,
+                                                    "bf16")
+        res["shape"] = f"{H}x{W} amplitude={amplitude:g} pw={pw} win={win}"
         if (H, W, amplitude) == LINKER_SHAPES[0]:
             hot["linker_scan"] = res
-        print(f"[3] linker_scan {H}x{W} amplitude={amplitude:g} pw={pw} win={win}: "
-              f"max_abs={err} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"{'ok (bit-exact)' if res['ok'] else 'FAIL'}")
+        print(f"[3] linker_scan {res['shape']}: max_abs={err} ms={res['ms']:.4f} "
+              f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) {'ok (bit-exact)' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"linker_scan {H, W, amplitude}")
-    for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias in CONV_SHAPES:
+    conv_rows = {}
+    for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias, launches in CONV_SHAPES:
         dtype = dtypes[dt]
         x = torch.randn(B, H, W, cin, device=dev, generator=gen).to(dtype)
         w = (torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5).to(dtype)
@@ -298,17 +417,52 @@ def phase_kernels(dev) -> dict:
         res["ms"] = time_ms(lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in), reps)
         res["plain_ms"] = time_ms(lambda: conv3x3_plain(x, w, b, skips[0], skips[1], relu_in),
                                   reps)
-        if (H, cin, cout, dt) == (768, 256, 256, "bf16"):
+        xc = x.permute(0, 3, 1, 2)  # NHWC storage: the channels-last view
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        res["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, b, padding=1), reps)
+        e = 2 if dt == "bf16" else 4
+        m = B * H * W
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            2.0 * m * 9 * cin * cout,
+            (m * cin + 9 * cin * cout + (cout if has_bias else 0) + (1 + n_skips) * m * cout) * e,
+            dt)
+        res["shape"] = (f"{B}x{H}x{W} {cin}->{cout} {dt} relu_in={relu_in} skips={n_skips} "
+                        f"bias={has_bias}")
+        res["launches_per_forward"] = launches
+        if (H, cin, cout, dt, n_skips) == (768, 256, 256, "bf16", 2):
             hot["conv3x3"] = res
-        print(f"[3] conv3x3 {B}x{H}x{W} {cin}->{cout} {dt} relu_in={relu_in} "
-              f"skips={n_skips}: max_abs={res['max_abs_err']:.3e} "
-              f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
-              f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"{'ok' if res['ok'] else 'FAIL'}")
+        conv_rows[(B, H, W, cin, cout, dtype, relu_in, n_skips, has_bias)] = res
+        print(f"[3] conv3x3 {res['shape']} x{launches or 0}/forward: "
+              f"max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
+              f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"library_ms(F.conv2d)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
-            failures.append(f"conv3x3 {B, H, W, cin, cout, dt}")
+            failures.append(f"conv3x3 {B, H, W, cin, cout, dt, n_skips}")
     require(not failures, f"kernels disagree with their plain versions: {failures}")
-    return hot
+    return hot, conv_rows
+
+
+def conv_per_forward(conv_rows: dict, by_shape: dict) -> dict:
+    """conv3x3's phase-3 times summed over one forward, each shape weighted
+    by its launches in the depth-map run (by_shape, from counted_run);
+    fails if the run launched a shape phase 3 did not time, or if the run's
+    launches differ from CONV_SHAPES' column."""
+    untimed = [k for k in by_shape if k not in conv_rows]
+    require(not untimed, f"the forward launched conv3x3 shapes phase 3 did not time: {untimed}")
+    plan = {k: r["launches_per_forward"] for k, r in conv_rows.items()
+            if r["launches_per_forward"]}
+    require(by_shape == plan, f"conv3x3 launches by shape {by_shape}, CONV_SHAPES says {plan}")
+    per_forward = {"launches": sum(by_shape.values())}
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        per_forward[key] = sum(n * conv_rows[k][key] for k, n in by_shape.items())
+    for k, n in by_shape.items():
+        print(f"[4] conv3x3 {conv_rows[k]['shape']}: {n} launch(es) in the depth-map run")
+    print(f"[4] conv3x3 per DEPTH_PRO forward ({per_forward['launches']} launches, sum of "
+          f"launches x phase-3 ms): kernel {per_forward['ms']:.3f} ms, plain "
+          f"{per_forward['plain_ms']:.3f}, library {per_forward['library_ms']:.3f}, "
+          f"bound {per_forward['bound_ms']:.3f}")
+    return per_forward
 
 
 def _png_size(path: str):
@@ -322,7 +476,7 @@ def phase_main_path(dev) -> tuple:
     import numpy as np
     import torch
 
-    from matrix_eyes_tpu.io.image import SourceImage
+    from matrix_eyes_tpu_torch.io.image import SourceImage
     from matrix_eyes_tpu_torch import pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
     from matrix_eyes_tpu_torch.models import depth_pro
@@ -346,12 +500,14 @@ def phase_main_path(dev) -> tuple:
 
     walls = []
     counts = []
+    conv_shapes = []
     for _ in range(2):
         t0 = time.perf_counter()
-        _, c = counted_run(lambda: pipeline.extract_depth(
+        _, c, shapes = counted_run(lambda: pipeline.extract_depth(
             cfg, params, "synthetic-3024x4032", out_png, runtime=runtime, source=src))
         walls.append(time.perf_counter() - t0)
         counts.append(c)
+        conv_shapes.append(shapes)
     print(f"[4] extract_depth wall s: first {walls[0]:.3f}, second {walls[1]:.3f}; "
           f"launches per run: {counts}")
     # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan on this path
@@ -359,6 +515,7 @@ def phase_main_path(dev) -> tuple:
               "attention_flash": 0}
     require(all(c == expect for c in counts),
             f"launch counts {counts}, expected {expect} per forward")
+    require(conv_shapes[0] == conv_shapes[1], f"conv3x3 shapes differ between runs: {conv_shapes}")
     size = _png_size(out_png)
     print(f"[4] {out_png}: {size[0]}x{size[1]}, {os.path.getsize(out_png)} bytes")
     require(size == (4032, 3024), f"depth map PNG is {size}, expected 4032x3024")
@@ -371,7 +528,7 @@ def phase_main_path(dev) -> tuple:
     print(f"[4] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
           f"{inv.max().item():.4g}], fov {fov_deg.item():.4f} deg; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts[0], params, src
+    return counts[0], conv_shapes[0], params, src
 
 
 def phase_end_to_end(dev) -> None:
@@ -439,7 +596,7 @@ def phase_stereogram(dev, params, src) -> dict:
         walls, counts = [], []
         for _ in range(2):
             t0 = time.perf_counter()
-            depth_map, c = counted_run(lambda: pipeline.extract_depth(
+            depth_map, c, _ = counted_run(lambda: pipeline.extract_depth(
                 cfg, params, "synthetic-3024x4032", out,
                 image_format=ImageOutputFormat.STEREOGRAM, stereo_amplitude=amplitude,
                 runtime=runtime, source=src))
@@ -481,12 +638,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     phase_build()
-    hot = phase_kernels(dev)
+    hot, conv_rows = phase_kernels(dev)
     by_path = {}
-    by_path["depthmap_png"], params, src = phase_main_path(dev)
+    by_path["depthmap_png"], conv_shapes, params, src = phase_main_path(dev)
+    hot["conv3x3"]["per_forward"] = conv_per_forward(conv_rows, conv_shapes)
     phase_end_to_end(dev)
     by_path.update(phase_stereogram(dev, params, src))
-    require("jax" not in sys.modules, "the port imported jax")
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
+    require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
     kernels = []
     for name, source, replaces, path in (
@@ -502,7 +661,11 @@ def main() -> int:
                         "launches": by_path[path][name], "launches_path": path,
                         "launches_by_path": {p: c[name] for p, c in by_path.items()},
                         "max_abs_err": hot[name]["max_abs_err"],
-                        "ms": hot[name]["ms"], "plain_ms": hot[name]["plain_ms"]})
+                        "ms": hot[name]["ms"], "plain_ms": hot[name]["plain_ms"],
+                        "bound_ms": hot[name]["bound_ms"], "bound_by": hot[name]["bound_by"],
+                        "library_ms": hot[name]["library_ms"], "shape": hot[name]["shape"]})
+        if "per_forward" in hot[name]:
+            kernels[-1]["per_forward"] = hot[name]["per_forward"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

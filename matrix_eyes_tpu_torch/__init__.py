@@ -1,11 +1,14 @@
 """matrix_eyes_tpu_torch: the PyTorch/CUDA port of matrix_eyes_tpu.
 
 Photo -> Apple Depth Pro inverse depth -> viridis depth-map PNG, on one
-NVIDIA Hopper GPU. Plain tensor code is PyTorch; the JAX package's Pallas
-kernels on this path are CUDA C++ kernels written for sm_90a
+NVIDIA Hopper GPU (or an autostereogram). Plain tensor code is PyTorch;
+the JAX package's Pallas kernels are CUDA C++ kernels written for sm_90a
 (``csrc/``), built with nvcc on first use and bound through ctypes. On the
-CPU each kernel's wrapper runs its plain PyTorch version. The package
-imports torch and never jax; ``matrix_eyes_tpu`` stays the reference.
+CPU each kernel's wrapper runs its plain PyTorch version; the entry points
+run on the card unless the caller asks for the CPU (``device="cpu"``).
+The package imports torch and nothing of the JAX package (it keeps its own
+copies of the host modules it needs); ``matrix_eyes_tpu`` stays the
+reference.
 
 Layer map:
   CLI            -> cli.py
@@ -13,8 +16,12 @@ Layer map:
   model          -> models/ (vit, encoder, decoder, head, fov, depth_pro)
   primitives     -> ops/ (nn, resize, colormap, attention)
   kernels        -> ops/flash_attention.py + csrc/attention_qkv.cu,
-                    ops/conv3x3.py + csrc/conv3x3.cu
-  output         -> output/ (depth-map render, PNG)
+                    ops/conv3x3.py + csrc/conv3x3.cu,
+                    ops/stereogram_kernel.py + csrc/linker_scan.cu
+                    (csrc/hopper.cuh: TMA, mbarrier and wgmma helpers)
+  output         -> output/ (depth-map and stereogram render, PNG),
+                    native/ (host Lanczos3, striped PNG encoder)
+  host IO        -> io/image.py, errors.py, progress.py
   weights        -> pt/convert.py, models/init.py
 """
 

@@ -128,17 +128,18 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
     return args
 
 
-def run(args: Args, progress=None) -> None:
+def run(args: Args, progress=None, device=None) -> None:
     """Load the checkpoint (the FOV part only when no focal length is
-    known) and run the pipeline on the CUDA device when there is one."""
-    from matrix_eyes_tpu.io.image import load_source_image
+    known) and run the pipeline on the CUDA card, or on ``device`` when a
+    programmatic caller names one ("cpu")."""
     from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype
+    from matrix_eyes_tpu_torch.io.image import load_source_image
     from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
     from matrix_eyes_tpu_torch.pipeline import extract_depth
     from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
 
     runtime = RuntimeConfig(dtype=parse_dtype(args.dtype) if args.dtype else None,
-                            seed=args.seed)
+                            device=device, seed=args.seed)
     src = load_source_image(args.img_src, args.focal_length)
     parts = ("encoder", "decoder", "head")
     if src.f_norm() is None:
@@ -153,20 +154,23 @@ def run(args: Args, progress=None) -> None:
                   runtime=runtime, progress=progress, source=src)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    """The CLI. ``device`` is for programmatic callers (the tests pass
+    "cpu"); the command line has no such flag and runs on the card."""
     print(f"Matrix Eyes version {__version__}")
     try:
         args = parse_args(sys.argv[1:] if argv is None else argv)
     except SystemExit as e:
         return int(e.code or 0)
 
-    from matrix_eyes_tpu.errors import MatrixEyesError
-    from matrix_eyes_tpu.progress import ConsoleProgressReporter
+    from matrix_eyes_tpu_torch.config import NoCudaDevice
+    from matrix_eyes_tpu_torch.errors import MatrixEyesError
+    from matrix_eyes_tpu_torch.progress import ConsoleProgressReporter
 
     pb = ConsoleProgressReporter()
     try:
-        run(args, progress=pb)
-    except MatrixEyesError as err:
+        run(args, progress=pb, device=device)
+    except (MatrixEyesError, NoCudaDevice) as err:
         pb.finish_and_clear()
         print(f"Reconstruction failed: {err}")
         return 1

@@ -1,9 +1,10 @@
 """Model and runtime configuration of the PyTorch port.
 
-A jax-free copy of ``matrix_eyes_tpu/config.py``: ``ModelConfig`` with the
+A copy of ``matrix_eyes_tpu/config.py``: ``ModelConfig`` with the
 ``DEPTH_PRO``, ``MID`` and ``TINY`` configurations, and a ``RuntimeConfig``
-for the f32 and bf16 float policies. The default dtype is bf16 on CUDA and
-f32 on the CPU.
+for the device and the f32 and bf16 float policies. The port runs on the
+CUDA card unless the caller asks for the CPU (``device="cpu"``); the
+default dtype is bf16 on CUDA and f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -112,12 +113,17 @@ def configure_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+class NoCudaDevice(RuntimeError):
+    """No CUDA device, and the caller did not ask for the CPU."""
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """dtype: parameter/compute dtype (accumulation is always f32); None
-    picks bf16 on CUDA and f32 on the CPU. device: None picks CUDA when
-    present. seed: stereogram noise seed (a CPU ``torch.Generator``, so a
-    seed gives the same image on every device; not the JAX package's bits)."""
+    picks bf16 on CUDA and f32 on the CPU. device: None means the CUDA card
+    (and raises ``NoCudaDevice`` without one); the CPU runs only when asked
+    for ("cpu"). seed: stereogram noise seed (a CPU ``torch.Generator``, so
+    a seed gives the same image on every device; not the JAX package's bits)."""
 
     dtype: Optional[torch.dtype] = None
     device: Optional[torch.device] = None
@@ -126,7 +132,10 @@ class RuntimeConfig:
     def resolved_device(self) -> torch.device:
         if self.device is not None:
             return torch.device(self.device)
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise NoCudaDevice("no CUDA device found: matrix_eyes_tpu_torch runs on the card "
+                               "unless the CPU is asked for (device=\"cpu\")")
+        return torch.device("cuda")
 
     def resolved_dtype(self) -> torch.dtype:
         if self.dtype is not None:

@@ -8,7 +8,10 @@ deconv1 and conv2 have no nonlinearity between them, so they compose
 exactly into ONE 3x3 conv on the half-resolution grid over Ci + 1 input
 channels (the extra always-one channel carries the deconv bias through
 conv2's zero padding) and 4 * 32 output channels, one per output-pixel
-phase, followed by depth-to-space. Both 3x3 convs go through the conv3x3
+phase, followed by depth-to-space. The input is built with zero channels
+after the ones-channel up to a multiple of 8 (136 at Depth Pro's Ci = 128),
+against zero weight rows, so the bf16 kernel takes it by TMA (16-byte
+strides) with no padded copy. Both 3x3 convs go through the conv3x3
 kernel. ``forward_unfused`` is the stage-by-stage oracle.
 """
 
@@ -26,9 +29,11 @@ Params = Dict
 def _compose_deconv_conv(params: Params):
     """Compose deconv1 (2x2/s2) with conv2 (3x3/p1) into one 3x3 conv.
 
-    Returns (w, b): w is (3, 3, Ci + 1, 4 * O) HWIO, input channel Ci the
-    ones-channel; b is the (4 * O,) phase-tiled conv2 bias. Output channels
-    are ordered (a, b, o), ``nn.deconv2x2``'s depth-to-space order.
+    Returns (w, b): w is (3, 3, Cp, 4 * O) HWIO, input channel Ci the
+    ones-channel and channels Ci + 1 .. Cp - 1 zero rows (Cp = Ci + 1
+    rounded up to a multiple of 8); b is the (4 * O,) phase-tiled conv2
+    bias. Output channels are ordered (a, b, o), ``nn.deconv2x2``'s
+    depth-to-space order.
 
     Conv2 at output row Y = 2i + a reads deconv rows Y + u - 1 = 2(i + di)
     + r with t = a + u - 1, di = floor(t / 2), r = t mod 2, so each (a, u)
@@ -43,7 +48,8 @@ def _compose_deconv_conv(params: Params):
     cd = wd.shape[1] // 4
     o = w2.shape[3]
     wd = wd.reshape(ci, 2, 2, cd)
-    comp = torch.zeros((3, 3, ci + 1, 2, 2, o), dtype=torch.float32, device=wd.device)
+    cp = -(-(ci + 1) // 8) * 8
+    comp = torch.zeros((3, 3, cp, 2, 2, o), dtype=torch.float32, device=wd.device)
     for a in (0, 1):
         for u in (0, 1, 2):
             di, r = divmod(a + u - 1, 2)  # floor semantics: t = -1 -> (-1, 1)
@@ -52,16 +58,17 @@ def _compose_deconv_conv(params: Params):
                     dj, s = divmod(b + v - 1, 2)
                     comp[di + 1, dj + 1, :ci, a, b] += wd[:, r, s, :] @ w2[u, v]
                     comp[di + 1, dj + 1, ci, a, b] += bd @ w2[u, v]
-    return comp.reshape(3, 3, ci + 1, 4 * o), b2.repeat(4)
+    return comp.reshape(3, 3, cp, 4 * o), b2.repeat(4)
 
 
 def forward(params: Params, features: torch.Tensor) -> torch.Tensor:
     """features: (B, H, W, C) decoder output; returns (B, 2H, 2W, 1)."""
     x = nn.conv2d(features, params["conv0_w"], params["conv0_b"], padding=1)
     w, b = _compose_deconv_conv(params)
-    B, H, W, _ = x.shape
-    ones = torch.ones((B, H, W, 1), dtype=x.dtype, device=x.device)
-    y = nn.conv2d(torch.cat([x, ones], dim=-1), w.to(x.dtype), b.to(x.dtype), padding=1)
+    B, H, W, C = x.shape
+    extra = torch.zeros((B, H, W, w.shape[2] - C), dtype=x.dtype, device=x.device)
+    extra[..., 0] = 1  # the ones-channel; the rest meet zero weight rows
+    y = nn.conv2d(torch.cat([x, extra], dim=-1), w.to(x.dtype), b.to(x.dtype), padding=1)
     # ReLU + the 1x1 conv3 stay in phase space: a block-diagonal (4*O, 4) matmul
     w3_blk = torch.block_diag(*([params["conv3_w"].float()] * 4)).to(x.dtype)
     y = nn.relu(nn.linear(nn.relu(y), w3_blk, params["conv3_b"].repeat(4)))  # (B, H, W, 4)

@@ -3,9 +3,11 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, bound through ctypes (a few seconds per
 file; nothing includes PyTorch's headers). Libraries land in ``_build/``
-inside the package, named by a hash of the source and the flags, so an
-edited kernel is rebuilt and a stale library is never loaded. Nothing
-here runs at import time: the package imports on a machine without CUDA.
+inside the package, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and a stale
+library is never loaded. ptxas's report (registers, shared memory, spills
+per kernel) is kept beside each library (``ptxas_report``). Nothing here
+runs at import time: the package imports on a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 Signatures = Dict[str, Tuple[object, Sequence[object]]]
 
@@ -45,8 +47,11 @@ def library_path(name: str) -> str:
     """Build ``csrc/<name>.cu`` unless an up-to-date library exists; return
     the library's path."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
@@ -58,11 +63,23 @@ def library_path(name: str) -> str:
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(proc.stderr)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report of the current build of ``csrc/<name>.cu`` (empty
+    when the library was built before reports were kept)."""
+    path = library_path(name) + ".ptxas.txt"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(name: str, signatures: Signatures) -> ctypes.CDLL:

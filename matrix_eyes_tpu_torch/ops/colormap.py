@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from matrix_eyes_tpu.ops.viridis_data import VIRIDIS_B, VIRIDIS_G, VIRIDIS_R
+from matrix_eyes_tpu_torch.ops.viridis_data import VIRIDIS_B, VIRIDIS_G, VIRIDIS_R
 
 _LUT = np.stack(
     [np.asarray(VIRIDIS_R), np.asarray(VIRIDIS_G), np.asarray(VIRIDIS_B)], axis=1

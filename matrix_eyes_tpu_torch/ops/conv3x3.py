@@ -4,14 +4,19 @@ and its plain version.
 Port of ``matrix_eyes_tpu/ops/conv3x3.py:conv3x3_pallas``: NHWC x HWIO +
 bias, optional ReLU on the input (``relu_in``), up to two residuals added
 in f32 in the epilogue (``skip``, ``skip2``), output in the input dtype.
-The kernel takes any channel counts (the head's 129-channel composed conv
-included); the TPU's lane and VMEM gates are not ported.
+The bf16 kernel reads its operands by TMA, whose strides must be multiples
+of 16 bytes: channel counts that are not multiples of 8 are padded with
+zeros around the launch (``conv3x3_padded``). The TPU's lane and VMEM gates
+are not ported.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,11 +27,56 @@ _SIGNATURES = {
     "me_conv3x3": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # x, w, bias
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # skip, skip2, out
+        ctypes.c_void_p,                                        # workspace
         ctypes.c_int, ctypes.c_int, ctypes.c_int,               # B, H, W
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Cin, Cout, relu_in, dtype
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Wt, R, bn, splits
         ctypes.c_void_p,                                        # stream
     ]),
 }
+
+# output pixels per block, a band of R rows x Wt columns: the kernel's M tile
+# (TC_BM in csrc/conv3x3.cu, which rejects any other band)
+TILE_PIXELS = 128
+_BAND_WIDTHS = (128, 64, 32, 16, 8)
+
+
+class Plan(NamedTuple):
+    """How the bf16 kernel cuts one call: the pixel band (wt columns x r
+    rows), the output-channel tile and the number of K splits."""
+
+    wt: int
+    r: int
+    bn: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, W: int, cin: int, cout: int, sms: int = 132) -> Plan:
+    """The band that wastes the fewest pixels at the image's edges (wider
+    on ties); N tile 256 above 128 output channels; and, for grids that
+    leave SMs idle, the K split with the least modelled time: waves of
+    blocks x K steps per block at ~1 us per 128 x 256 x 64 step, plus the
+    split's f32 partials written and read at ~3 TB/s."""
+    def waste(wt):
+        r = TILE_PIXELS // wt
+        return math.ceil(W / wt) * wt * math.ceil(H / r) * r
+
+    wt = min(_BAND_WIDTHS, key=lambda w: (waste(w), -w))
+    bn = 256 if cout > 128 else 128
+    tiles = B * math.ceil(H / (TILE_PIXELS // wt)) * math.ceil(W / wt) * math.ceil(cout / bn)
+    steps = 9 * math.ceil(cin / 64)
+    step_s = 1.05e-6 * bn / 256
+    partial_s = B * H * W * cout * 8 / 3.0e12
+
+    def cost(s):
+        per = math.ceil(steps / s)
+        return (math.ceil(tiles * math.ceil(steps / per) / sms) * per * step_s
+                + (s * partial_s if s > 1 else 0.0))
+
+    splits = min(range(1, min(16, steps) + 1), key=cost)
+    splits = math.ceil(steps / math.ceil(steps / splits))  # no split left empty
+    return Plan(wt, TILE_PIXELS // wt, bn, splits)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -41,6 +91,53 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = 
         if s is not None:
             y = y + s.float()
     return y.to(x.dtype).contiguous()
+
+
+def conv3x3_padded(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                   skip: Optional[torch.Tensor] = None, skip2: Optional[torch.Tensor] = None,
+                   relu_in: bool = False) -> torch.Tensor:
+    """Call ``fn`` (same arguments as ``conv3x3``) with Cin and Cout padded
+    with zeros to multiples of 8 and return the first Cout channels. Zero
+    input channels meet zero weight rows, so the sum is unchanged."""
+    cin, cout = w.shape[2], w.shape[3]
+    pi, po = -cin % 8, -cout % 8
+    if pi == 0 and po == 0:
+        return fn(x, w, b, skip, skip2, relu_in)
+
+    def pad(t):
+        return None if t is None else F.pad(t, (0, po)).contiguous()
+
+    y = fn(F.pad(x, (0, pi)).contiguous(), F.pad(w, (0, po, 0, pi)).contiguous(), pad(b),
+           pad(skip), pad(skip2), relu_in)
+    return y[..., :cout].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(x, w, b, skip, skip2, relu_in):
+    B, H, W, Cin = x.shape
+    Cout = w.shape[3]
+    code = _build.dtype_code(x.dtype)
+    lib = _build.load("conv3x3", _SIGNATURES)
+    out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
+    p = plan(B, H, W, Cin, Cout, _sm_count(x.device))
+    workspace = None
+    if code == 1 and p.splits > 1:
+        workspace = torch.empty((p.splits, B, H, W, Cout), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.me_conv3x3(ptr(x), ptr(w), ptr(b), ptr(skip), ptr(skip2), ptr(out),
+                            ptr(workspace), B, H, W, Cin, Cout, int(relu_in), code,
+                            p.wt, p.r, p.bn, p.splits, stream)
+    _build.check_launch(rc, "conv3x3")
+    return out
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -71,20 +168,16 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
             raise ValueError("conv3x3 operands must share the input's device and dtype")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("conv3x3 needs contiguous, 16-byte aligned operands")
-    code = _build.dtype_code(x.dtype)
-    lib = _build.load("conv3x3", _SIGNATURES)
-    out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.me_conv3x3(ptr(x), ptr(w), ptr(b), ptr(skip), ptr(skip2), ptr(out),
-                            B, H, W, Cin, Cout, int(relu_in), code, stream)
-    _build.check_launch(rc, "conv3x3")
+    if x.dtype == torch.bfloat16:
+        out = conv3x3_padded(_launch, x, w, b, skip, skip2, relu_in)
+    else:
+        out = _launch(x, w, b, skip, skip2, relu_in)
     conv3x3.launches += 1
+    conv3x3.launches_by_shape[(B, H, W, Cin, Cout, x.dtype, bool(relu_in),
+                               (skip is not None) + (skip2 is not None), b is not None)] += 1
     return out
 
 
 conv3x3.launches = 0
+# launches by (B, H, W, Cin, Cout, dtype, relu_in, residuals, bias)
+conv3x3.launches_by_shape = collections.Counter()

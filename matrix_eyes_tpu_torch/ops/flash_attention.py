@@ -9,9 +9,11 @@ entries, and their plain versions.
   copy.
 
 Either way the (B, H, N, N) score tensor never touches device memory. The
-kernel takes any token count (577 as it is: no token padding) and the head
-sizes of every config: 8, 32 and 64. The TPU kernel's lane grouping of
-heads is not needed here: a block serves one head.
+kernel takes any token count (577 as it is: no token padding; the bf16 path
+keeps a head's K and V whole in shared memory up to 640 keys at D = 64 and
+1536 at D = 32, and streams them through a ring beyond) and the head sizes
+of every config: 8, 32 and 64. The TPU kernel's lane grouping of heads is
+not needed here: a block serves one head.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from matrix_eyes_tpu_torch.ops.attention import attention_xla as attention_flash
 
 HEAD_DIMS = (8, 32, 64)  # TINY, MID, DEPTH_PRO
 _LOG2E = 1.4426950408889634  # exp(x) = exp2(x * log2 e)
+
 
 _SIGNATURES = {
     "me_attention_qkv": (ctypes.c_int, [

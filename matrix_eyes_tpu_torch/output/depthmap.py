@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from matrix_eyes_tpu.errors import OutputError
+from matrix_eyes_tpu_torch.errors import OutputError
 from matrix_eyes_tpu_torch.ops.colormap import map_depth
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
 from matrix_eyes_tpu_torch.ops.stereogram import (

@@ -1,12 +1,12 @@
 """PNG serialisation of depth maps and stereograms (port of
 ``matrix_eyes_tpu/output/png.py``).
 
-The native striped encoder and the native host Lanczos3 resizer are
-imported from the JAX package's ``native`` modules, which are jax-free.
-Images are encoded in ENCODE_ROWS stripes at zlib level 1, depth maps with
-the fixed Up filter and stereograms with filter None (their pixel chains
-are long exact LZ matches that row filters would obscure), so the bytes
-match the JAX package's for the same pixels. A stereogram in its compact
+The native striped encoder and the native host Lanczos3 resizer are the
+port's own copies (``matrix_eyes_tpu_torch/native``). Images are encoded
+in ENCODE_ROWS stripes at zlib level 1, depth maps with the fixed Up
+filter and stereograms with filter None (their pixel chains are long
+exact LZ matches that row filters would obscure), so the bytes match the
+JAX package's for the same pixels. A stereogram in its compact
 (shift, noise) form is encoded by the native encoder, which replays the
 linker scan per stripe. Without the native encoder, PIL writes the file.
 """
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from matrix_eyes_tpu.errors import OutputError
-from matrix_eyes_tpu.native import pngwriter
+from matrix_eyes_tpu_torch.errors import OutputError
+from matrix_eyes_tpu_torch.native import pngwriter
 
 DEPTH_MAP = {"level": 1, "filter": pngwriter.FILTER_UP}
 STEREOGRAM = {"level": 1, "filter": pngwriter.FILTER_NONE}
@@ -30,7 +30,7 @@ def _host_stripes(arr: np.ndarray):
 def host_resize_supported() -> bool:
     """Whether the depth-map save can take the grid-transfer path (native
     striped encoder + native host Lanczos3 resizer)."""
-    from matrix_eyes_tpu.native import lanczos
+    from matrix_eyes_tpu_torch.native import lanczos
 
     return pngwriter.available() and lanczos.available()
 
@@ -55,7 +55,7 @@ def save_depthmap_host_resize(grid: np.ndarray, path: str, out_h: int, out_w: in
     """Encode a depth-map PNG from its grid-resolution colour image (u8
     (H, W, 3) on the host): Lanczos3-upsize to (out_h, out_w) on the host,
     then stripe-encode."""
-    from matrix_eyes_tpu.native import lanczos
+    from matrix_eyes_tpu_torch.native import lanczos
 
     try:
         full = lanczos.resize_rgb8(grid, out_h, out_w)

@@ -17,9 +17,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from matrix_eyes_tpu.errors import MatrixEyesError, ReconstructionError
-from matrix_eyes_tpu.io.image import SourceImage, load_source_image
-from matrix_eyes_tpu.progress import SplitProgressListener
+from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
+from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
+from matrix_eyes_tpu_torch.progress import SplitProgressListener
 from matrix_eyes_tpu_torch.config import ModelConfig, RuntimeConfig, configure_precision
 from matrix_eyes_tpu_torch.models import depth_pro
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from matrix_eyes_tpu.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
+from matrix_eyes_tpu_torch.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
 from matrix_eyes_tpu_torch.config import ModelConfig
 from matrix_eyes_tpu_torch.models.spec import param_spec, tree_leaves, tree_map
 

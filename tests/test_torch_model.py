@@ -17,8 +17,8 @@ import torch
 import jax.numpy as jnp
 
 from matrix_eyes_tpu.config import DEPTH_PRO as J_DEPTH_PRO
+from matrix_eyes_tpu.config import MID as J_MID
 from matrix_eyes_tpu.config import TINY as J_TINY
-from matrix_eyes_tpu.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
 from matrix_eyes_tpu.models import decoder as jdecoder
 from matrix_eyes_tpu.models import depth_pro as jdepth_pro
 from matrix_eyes_tpu.models import encoder as jencoder
@@ -28,7 +28,8 @@ from matrix_eyes_tpu.models import vit as jvit
 from matrix_eyes_tpu.models.init import init_params as j_init_params
 from matrix_eyes_tpu.models.spec import param_spec as j_param_spec
 from matrix_eyes_tpu.pt.convert import convert_state_dict as j_convert_state_dict
-from matrix_eyes_tpu_torch.config import DEPTH_PRO, TINY
+from matrix_eyes_tpu_torch.config import DEPTH_PRO, MID, TINY
+from matrix_eyes_tpu_torch.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
 from matrix_eyes_tpu_torch.models import decoder as tdecoder
 from matrix_eyes_tpu_torch.models import depth_pro as tdepth_pro
 from matrix_eyes_tpu_torch.models import encoder as tencoder
@@ -118,6 +119,30 @@ def test_head(weights, fused):
         got = tfn(tparams["head"], torch.from_numpy(feat))
     assert tuple(got.shape) == (1, 128, 128, 1)
     _close(got, want, 5e-4, 5e-5)
+
+
+@pytest.mark.parametrize("name", ["TINY", "MID"])
+def test_head_composed_input_padded_to_8(name):
+    # the composed deconv+conv input is the features, the ones-channel and
+    # zero channels up to a multiple of 8 (136 at DEPTH_PRO), against zero
+    # weight rows: the same function as the unfused head and the JAX head
+    jcfg, tcfg = {"TINY": (J_TINY, TINY), "MID": (J_MID, MID)}[name]
+    jall = j_init_params(jcfg, seed=13)
+    jparams = jall["head"]
+    tparams = from_jax_params(tcfg, jax.tree.map(np.asarray, jall), "cpu")["head"]
+    w, _b = thead._compose_deconv_conv(tparams)
+    ci = tcfg.decoder_features // 2
+    assert w.shape[2] % 8 == 0 and ci + 1 <= w.shape[2] < ci + 9
+    assert not w[:, :, ci + 1:].any()
+    feat = np.random.RandomState(6).uniform(-1, 1, (1, 24, 20, tcfg.decoder_features))
+    feat = feat.astype(np.float32)
+    want = jhead.forward(jparams, jnp.asarray(feat))
+    with torch.no_grad():
+        fused = thead.forward(tparams, torch.from_numpy(feat))
+        unfused = thead.forward_unfused(tparams, torch.from_numpy(feat))
+    assert tuple(fused.shape) == (1, 48, 40, 1)
+    _close(fused, unfused.numpy(), 5e-4, 5e-5)
+    _close(fused, want, 5e-4, 5e-5)
 
 
 def test_fov_degrees(weights, image):

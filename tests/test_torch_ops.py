@@ -25,7 +25,7 @@ from matrix_eyes_tpu_torch.ops import colormap as tcolormap
 from matrix_eyes_tpu_torch.ops import nn as tnn
 from matrix_eyes_tpu_torch.ops import resize as tresize
 from matrix_eyes_tpu_torch.ops.attention import attention_xla as t_attention_xla
-from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
+from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_padded, conv3x3_plain, plan
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
 
 
@@ -227,3 +227,65 @@ def test_map_depth_bit_exact():
     want = np.asarray(jcolormap.map_depth(jnp.asarray(v)))
     got = tcolormap.map_depth(torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# --- the conv3x3 wrapper around the bf16 kernel ----------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,relu_in,n_skips", [
+    (129, 128, False, 0),  # odd Cin only
+    (12, 5, True, 2),      # odd Cout, both residuals
+    (5, 3, True, 1),       # both odd, narrower than one 8-channel vector
+    (16, 8, False, 0),     # already aligned: no padding, same call
+])
+def test_conv3x3_channel_padding_gives_plain_result(dtype, cin, cout, relu_in, n_skips):
+    # the bf16 kernel takes channels in multiples of 8 (16-byte TMA strides);
+    # the wrapper pads with zeros around it, which must not change the result
+    rng = np.random.RandomState(cin * 10 + cout)
+    x = torch.from_numpy(_u(rng, (2, 6, 11, cin))).to(dtype)
+    w = torch.from_numpy(_u(rng, (3, 3, cin, cout), -0.3, 0.3)).to(dtype)
+    b = torch.from_numpy(_u(rng, (cout,))).to(dtype)
+    skips = [torch.from_numpy(_u(rng, (2, 6, 11, cout))).to(dtype) for _ in range(n_skips)]
+    skips += [None] * (2 - n_skips)
+    seen = []
+
+    def spy(*args):
+        seen.append(tuple(args[1].shape))
+        assert args[0].shape[-1] % 8 == 0 and args[1].shape[-1] % 8 == 0
+        assert all(t is None or t.shape[-1] == args[1].shape[-1] for t in args[2:5])
+        return conv3x3_plain(*args)
+
+    got = conv3x3_padded(spy, x, w, b, skips[0], skips[1], relu_in)
+    want = conv3x3_plain(x, w, b, skips[0], skips[1], relu_in)
+    assert seen == [(3, 3, -(-cin // 8) * 8, -(-cout // 8) * 8)]
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 768, 768, 256, 256),   # RCU at the finest decoder level
+    (1, 384, 384, 256, 256),
+    (1, 192, 192, 512, 256),
+    (1, 96, 96, 1024, 256),    # projection
+    (1, 48, 48, 1024, 256),    # projection, K = 9216 on a small grid
+    (1, 768, 768, 256, 128),   # head conv0
+    (1, 768, 768, 136, 128),   # head's composed conv
+    (2, 7, 9, 8, 8),           # TINY widths, ragged edges
+])
+def test_conv3x3_plan(shape):
+    B, H, W, cin, cout = shape
+    p = plan(B, H, W, cin, cout, sms=132)
+    assert p.wt * p.r == 128 and p.wt in (8, 16, 32, 64, 128)
+    assert p.bn == (256 if cout > 128 else 128)
+    steps = 9 * -(-cin // 64)
+    assert 1 <= p.splits <= steps
+    per = -(-steps // p.splits)
+    assert -(-steps // per) == p.splits  # every split has K steps (the kernel checks this)
+    if W % 8 == 0:
+        assert W % p.wt == 0 and H % p.r == 0  # bands tile the image exactly
+    blocks = B * -(-H // p.r) * -(-W // p.wt) * -(-cout // p.bn)
+    if blocks >= 4 * 132:
+        assert p.splits == 1  # a full card never pays for partial sums
+    if shape == (1, 48, 48, 1024, 256):
+        assert blocks < 132 and blocks * p.splits >= 100  # the split fills the card

@@ -15,13 +15,13 @@ import jax.numpy as jnp
 
 from matrix_eyes_tpu import cli as jcli
 from matrix_eyes_tpu.config import TINY as J_TINY
-from matrix_eyes_tpu.errors import ReconstructionError
-from matrix_eyes_tpu.io.image import SourceImage
 from matrix_eyes_tpu.output import depthmap as jdepthmap
 from matrix_eyes_tpu.output import png as jpng
 from matrix_eyes_tpu.pipeline import preprocess_image as j_preprocess
 from matrix_eyes_tpu_torch import cli as tcli
-from matrix_eyes_tpu_torch.config import TINY
+from matrix_eyes_tpu_torch.config import TINY, RuntimeConfig
+from matrix_eyes_tpu_torch.errors import ReconstructionError
+from matrix_eyes_tpu_torch.io.image import SourceImage
 from matrix_eyes_tpu_torch.models.init import init_params
 from matrix_eyes_tpu_torch.output import depthmap as tdepthmap
 from matrix_eyes_tpu_torch.output import png as tpng
@@ -101,7 +101,8 @@ def test_cli_matches_jax_cli(workdir):
     d, ckpt, src = workdir
     jout, tout = str(d / "jax.png"), str(d / "torch.png")
     assert jcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", src, jout]) == 0
-    assert tcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", src, tout]) == 0
+    assert tcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", src, tout],
+                     device="cpu") == 0
     a = np.asarray(Image.open(tout).convert("RGB")).astype(int)
     b = np.asarray(Image.open(jout).convert("RGB")).astype(int)
     assert a.shape == b.shape == (480, 640, 3)
@@ -114,14 +115,15 @@ def test_cli_matches_jax_cli(workdir):
 def test_cli_fov_path(workdir):
     d, ckpt, src = workdir
     out = str(d / "fov.png")
-    assert tcli.main([f"--checkpoint-path={ckpt}", "--dtype=f32", src, out]) == 0
+    assert tcli.main([f"--checkpoint-path={ckpt}", "--dtype=f32", src, out], device="cpu") == 0
     with Image.open(out) as im:
         assert im.format == "PNG" and im.size == (640, 480)
 
 
 def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     d, _ckpt, src = workdir
-    assert tcli.main([f"--checkpoint-path={d / 'nope.pt'}", src, str(d / "x.png")]) == 1
+    assert tcli.main([f"--checkpoint-path={d / 'nope.pt'}", src, str(d / "x.png")],
+                     device="cpu") == 1
     assert "Reconstruction failed" in capsys.readouterr().out
 
 
@@ -164,27 +166,37 @@ def test_cli_help_and_unknown_flag():
 def test_extract_depth_stage_errors(tmp_path, capsys):
     params = init_params(TINY, torch.Generator().manual_seed(0), "cpu")
     del params["fov"]
+    cpu = RuntimeConfig(device="cpu")
     with pytest.raises(ReconstructionError) as e:
-        extract_depth(TINY, params, str(tmp_path / "missing.jpg"), str(tmp_path / "o.png"))
+        extract_depth(TINY, params, str(tmp_path / "missing.jpg"), str(tmp_path / "o.png"),
+                      runtime=cpu)
     assert e.value.stage == "load"
     assert "Failed to load source image" in capsys.readouterr().err
     # no focal length and no FOV weights: a model-stage (systemic) failure
     src = SourceImage(rgb=np.zeros((8, 8, 3), np.uint8), original_size=(8, 8),
                       focal_length_35mm=None)
     with pytest.raises(ReconstructionError) as e:
-        extract_depth(TINY, params, "x", str(tmp_path / "o.png"), source=src)
+        extract_depth(TINY, params, "x", str(tmp_path / "o.png"), source=src, runtime=cpu)
     assert e.value.stage == "model"
     assert "Failed to process image" in capsys.readouterr().err
 
 
 def test_port_imports_no_jax():
-    code = ("import sys\n"
-            "import matrix_eyes_tpu_torch.cli, matrix_eyes_tpu_torch.pipeline\n"
-            "import matrix_eyes_tpu_torch.pt.convert, matrix_eyes_tpu_torch.models.init\n"
-            "import matrix_eyes_tpu_torch.ops.stereogram, matrix_eyes_tpu_torch.ops.stereogram_kernel\n"
-            "import matrix_eyes_tpu_torch.output.depthmap, matrix_eyes_tpu_torch.output.png\n"
-            "import matrix_eyes_tpu_torch.ops.flash_attention\n"
-            "sys.exit(int('jax' in sys.modules))\n")
+    # every module of the port (cli, output.png and the copies of the JAX
+    # package's host modules included), then neither jax nor any module of
+    # the JAX package may be loaded
+    code = ("import importlib, pkgutil, sys\n"
+            "import matrix_eyes_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "for name in ('cli', 'output.png', 'errors', 'progress', 'io.image',\n"
+            "             'ops.viridis_data', 'native.lanczos', 'native.pngwriter'):\n"
+            "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"
+            "print(bad)\n"
+            "sys.exit(int(bool(bad)))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr or "jax was imported"
+    assert proc.returncode == 0, proc.stderr or proc.stdout

@@ -238,7 +238,7 @@ def test_cli_stereogram_matches_jax(workdir, monkeypatch):
     flags = [f"--checkpoint-path={ckpt}", "--image-output-format=stereogram",
              "--resize-scale=1.5", "--seed=7", "--focal-length=28"]
     tout, jout = str(d / "torch_stereo.png"), str(d / "jax_stereo.png")
-    assert tcli.main(flags + [src, tout]) == 0
+    assert tcli.main(flags + [src, tout], device="cpu") == 0
     assert jcli.main(flags + [src, jout]) == 0
     got = _decode(tout)
     assert got.shape == (720, 960, 3)
