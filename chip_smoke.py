@@ -14,7 +14,9 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
 3. each kernel entry against its plain PyTorch version on the card, at the
    shapes the main path gives it, with errors and warm times, the least
    time the card could take (``bound_ms``: the larger of the bytes over
-   3.35 TB/s and the FLOPs over 989 TFLOP/s bf16 or 67 TFLOP/s f32) and,
+   3.35 TB/s and the FLOPs over 989 TFLOP/s bf16; f32 attention three
+   TF32 products at 495 TFLOP/s, with one f32 product on the CUDA cores at
+   67 TFLOP/s beside it as ``bound_cuda_core_ms``; the f32 conv 67) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``: ``F.conv2d`` on the channels-last view with bias,
    SDPA on contiguous (B, H, N, D); timing yardsticks the port never
@@ -79,12 +81,14 @@ STEREO_SEED = 7
 # the H100 SXM's dense peaks (NVIDIA data sheet, 700 W): bound_ms is the
 # larger of the bytes a call must move and the FLOPs it must do over these
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bf16": 989e12, "f32": 67e12}  # tensor cores; f32 on CUDA cores
+PEAK_FLOPS_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # tensor cores; f32 CUDA cores
 
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
     (35, 577, 16, 64, "f32", None),    # patch ViT under --dtype f32
     (1, 577, 16, 64, "f32", None),     # FOV ViT (f32 under every dtype)
+    (1, 577, 16, 64, "f32", 500),      # the same, keys past n_valid masked
+    (1, 1025, 16, 64, "f32", None),    # FOV ViT of a vit_img_size 512 checkpoint
     (1, 577, 16, 64, "bf16", None),    # image ViT
     (1, 577, 16, 64, "bf16", 500),     # keys past n_valid masked
     (35, 1025, 16, 64, "bf16", None),  # vit_img_size 512: K and V stream through the ring
@@ -96,6 +100,7 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
 ]
 FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffer)
     (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
+    (35, 16, 577, 64, "f32", None, True),   # the same under --dtype f32
     (1, 16, 577, 64, "bf16", 500, False),   # keys past n_valid masked
     (2, 4, 130, 32, "bf16", 100, False),    # MID heads, ragged N, masked
     (2, 16, 1025, 64, "bf16", 1000, False),  # K and V streamed, masked
@@ -109,7 +114,8 @@ LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
     (130, 33, 0.45),        # W < pw + win, H not a multiple of anything
     (5, 20, 0.06),          # win == pw: one column per step
     (4, 20, 0.6),           # pw > W: noise only
-    (3, 30000, 0.45),       # pw 27000: rings past shared memory's size
+    (3, 30000, 0.45),       # pw 27000: a 128 KB ring in shared memory
+    (2, 64000, 0.45),       # pw 57600: the ring past shared memory, in device memory
 ]
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
@@ -237,7 +243,8 @@ def phase_environment() -> str:
     return smi
 
 
-_NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_splitk_reduce", "attention_wgmma_kernel")
+_NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_splitk_reduce", "attention_wgmma_kernel",
+                "attention_tf32_kernel", "split_tf32_kernel", "linker_scan_kernel")
 
 
 def _ptxas_lines(report: str) -> list:
@@ -278,16 +285,23 @@ def phase_build() -> None:
         paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("conv3x3", "attention_qkv"):
+    for name in ("conv3x3", "attention_qkv", "linker_scan"):
         for line in _ptxas_lines(_build.ptxas_report(name)):
             print(f"[2] ptxas {line}")
+        require("C7514" not in _build.ptxas_report(name),
+                f"ptxas serialized a wgmma pipeline of {name} (warning C7514)")
     conv = ctypes.CDLL(paths[1])
     attn = ctypes.CDLL(paths[0])
+    scan = ctypes.CDLL(paths[2])
     print(f"[2] dynamic shared memory per block: conv3x3_wgmma_kernel<256> "
           f"{conv.me_conv3x3_smem_bytes(256)} B, <128> {conv.me_conv3x3_smem_bytes(128)} B; "
-          f"attention_wgmma_kernel<64> at 577 keys {attn.me_attention_smem_bytes(64, 577)} B, "
-          f"<32> at 577 keys {attn.me_attention_smem_bytes(32, 577)} B; streamed K/V ring "
-          f"<64> at 1025 keys {attn.me_attention_smem_bytes(64, 1025)} B")
+          f"attention_wgmma_kernel<64> at 577 keys {attn.me_attention_smem_bytes(64, 577, 1)} B, "
+          f"<32> at 577 keys {attn.me_attention_smem_bytes(32, 577, 1)} B; streamed K/V ring "
+          f"<64> at 1025 keys {attn.me_attention_smem_bytes(64, 1025, 1)} B; "
+          f"attention_tf32_kernel<64> {attn.me_attention_smem_bytes(64, 577, 0)} B, "
+          f"<32> {attn.me_attention_smem_bytes(32, 577, 0)} B; linker_scan_kernel at 4032 "
+          f"columns pw 504 {scan.me_linker_scan_smem_bytes(4032, 504)} B, 30000 columns pw "
+          f"27000 {scan.me_linker_scan_smem_bytes(30000, 27000)} B")
 
 
 def bound_ms(flops: float, nbytes: float, dt: str) -> tuple:
@@ -317,11 +331,24 @@ def phase_kernels(dev) -> dict:
     hot = {}
     failures = []
 
-    def attention_bound(B, N, H, D, dt, n_valid):
+    def attention_bound(res, B, N, H, D, dt, n_valid):
+        """bound_ms and bound_by into res; for f32 the least time at f32
+        accuracy on the tensor cores (three TF32 products) and, beside it,
+        one f32 product on the CUDA cores (bound_cuda_core_ms)."""
         nv = N if n_valid is None else n_valid
         e = 2 if dt == "bf16" else 4
         # q and o over N rows, k and v over the n_valid keys that count
-        return bound_ms(4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e, dt)
+        flops, nbytes = 4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e
+        if dt == "bf16":
+            res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, "bf16")
+        else:
+            res["bound_ms"], res["bound_by"] = bound_ms(3 * flops, nbytes, "tf32")
+            res["bound_cuda_core_ms"] = bound_ms(flops, nbytes, "f32")[0]
+
+    def bound_text(res):
+        extra = (f", CUDA cores {res['bound_cuda_core_ms']:.4f}" if "bound_cuda_core_ms" in res
+                 else "")
+        return f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}{extra})"
 
     def sdpa_ms(q, k, v, scale, n_valid, reps):
         nv = q.shape[2] if n_valid is None else n_valid
@@ -339,15 +366,17 @@ def phase_kernels(dev) -> dict:
         res["plain_ms"] = time_ms(lambda: attention_qkv_plain(qkv, H, scale, n_valid), reps)
         q, k, v = (t.contiguous() for t in qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
         res["library_ms"] = sdpa_ms(q, k, v, scale, n_valid, reps)
-        res["bound_ms"], res["bound_by"] = attention_bound(B, N, H, D, dt, n_valid)
+        attention_bound(res, B, N, H, D, dt, n_valid)
         res["shape"] = f"B={B} N={N} H={H} D={D} {dt} n_valid={n_valid}"
         if (B, N, dt, n_valid) == (35, 577, "bf16", None):
             hot["attention_qkv"] = res
+        if (B, N, dt, n_valid) == (1, 577, "f32", None):
+            hot["attention_qkv_fov_f32"] = res
         print(f"[3] attention {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"library_ms(sdpa)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
-              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
+              f"library_ms(sdpa)={res['library_ms']:.4f} {bound_text(res)} "
+              f"{'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"attention {B, N, H, D, dt, n_valid}")
     for B, H, N, D, dt, n_valid, views in FLASH_SHAPES:
@@ -366,15 +395,15 @@ def phase_kernels(dev) -> dict:
         res["plain_ms"] = time_ms(lambda: attention_flash_plain(q, k, v, scale, n_valid), reps)
         res["library_ms"] = sdpa_ms(q.contiguous(), k.contiguous(), v.contiguous(), scale,
                                     n_valid, reps)
-        res["bound_ms"], res["bound_by"] = attention_bound(B, N, H, D, dt, n_valid)
+        attention_bound(res, B, N, H, D, dt, n_valid)
         res["shape"] = f"B={B} H={H} N={N} D={D} {dt} n_valid={n_valid} views={views}"
-        if views:
+        if views and dt == "bf16":
             hot["attention_flash"] = res
         print(f"[3] attention_flash {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"library_ms(sdpa)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
-              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
+              f"library_ms(sdpa)={res['library_ms']:.4f} {bound_text(res)} "
+              f"{'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"attention_flash {B, H, N, D, dt, n_valid}")
     for H, W, amplitude in LINKER_SHAPES:
@@ -666,6 +695,11 @@ def main() -> int:
                         "library_ms": hot[name]["library_ms"], "shape": hot[name]["shape"]})
         if "per_forward" in hot[name]:
             kernels[-1]["per_forward"] = hot[name]["per_forward"]
+        if name == "attention_qkv":  # the FOV ViT's f32 call, 24 launches per forward
+            fov = hot["attention_qkv_fov_f32"]
+            kernels[-1]["fov_f32"] = {k: fov[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_cuda_core_ms")}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

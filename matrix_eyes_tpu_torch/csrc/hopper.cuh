@@ -84,6 +84,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // Shared -> global; the box's parts outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2, int c3) {
@@ -271,6 +281,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// TF32 (f32 with a 10-bit mantissa, as cvt.rna.tf32.f32 rounds: to nearest,
+// ties away from zero). wgmma reads .tf32 operands K-major only (no
+// transpose bit); the register A operand of one k8 step of warp w holds
+// a[0] = (row 16w + g, k t), a[1] = (16w + g + 8, t), a[2] = (16w + g, t + 4),
+// a[3] = (16w + g + 8, t + 4), lane = 4g + t. In a 128-byte swizzled K-major
+// tile a k8 step advances the start address by 32 bytes, as a bf16 k16 does.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D(64 x 64, f32) (+)= A(64 x 8) * B(8 x 64), tf32, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k8_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 64, f32) += A(64 x 8, tf32 registers) * B(8 x 64, tf32, K-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
+// D(64 x 32, f32) += A(64 x 8, tf32 registers) * B(8 x 32, tf32, K-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+}
+
 #undef WG_ACC8
 #undef WG_ACC16
 #undef WG_ACC32
@@ -300,15 +360,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first) with byte
-// strides of dimensions 1.. and a box of `box` elements; coordinates outside
-// the tensor read as zeros. Returns 0, or a negative code.
+// A tensor map of `rank` dimensions (innermost first) with byte strides of
+// dimensions 1.. and a box of `box` elements (bf16 unless `type` says
+// otherwise); coordinates outside the tensor read as zeros. Returns 0, or a
+// negative code.
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint64_t* strides, const uint32_t* box, int row_bytes) {
+                    const uint64_t* strides, const uint32_t* box, int row_bytes,
+                    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -10;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = fn(map, type, (cuuint32_t)rank,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,

@@ -12,7 +12,10 @@ Either way the (B, H, N, N) score tensor never touches device memory. The
 kernel takes any token count (577 as it is: no token padding; the bf16 path
 keeps a head's K and V whole in shared memory up to 640 keys at D = 64 and
 1536 at D = 32, and streams them through a ring beyond) and the head sizes
-of every config: 8, 32 and 64. The TPU kernel's lane grouping of heads is
+of every config: 8, 32 and 64. f32 at D = 32 and 64 runs on the tensor
+cores at f32 accuracy (3xTF32): a pre-pass splits q, k and v into TF32
+halves in a scratch buffer that the wrapper allocates, about twice the
+inputs' size. The TPU kernel's lane grouping of heads is
 not needed here: a block serves one head.
 """
 
@@ -33,19 +36,33 @@ _LOG2E = 1.4426950408889634  # exp(x) = exp2(x * log2 e)
 
 _SIGNATURES = {
     "me_attention_qkv": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p,                       # qkv, out
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # qkv, out, scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, H, D
         ctypes.c_int, ctypes.c_float, ctypes.c_int,             # n_valid, scale*log2e, dtype
         ctypes.c_void_p,                                        # stream
     ]),
     "me_attention_bhnd": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
+        ctypes.c_void_p,                                        # scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, N, D
         ctypes.c_int, ctypes.c_float, ctypes.c_int,             # n_valid, scale*log2e, dtype
         ctypes.POINTER(ctypes.c_longlong),                      # 12 (b, h, n) strides
         ctypes.c_void_p,                                        # stream
     ]),
+    "me_attention_scratch_floats": (ctypes.c_longlong, [ctypes.c_int] * 6),  # B N H D n_valid dtype
 }
+
+def _scratch(lib, B: int, N: int, H: int, D: int, n_valid: int, code: int,
+             device) -> Optional[torch.Tensor]:
+    """The f32 path's device scratch (the split TF32 operands), or None
+    where the kernel needs none."""
+    floats = lib.me_attention_scratch_floats(B, N, H, D, n_valid, code)
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
 
 __all__ = ["attention_qkv", "attention_qkv_plain", "attention_flash", "attention_flash_plain",
            "HEAD_DIMS"]
@@ -81,9 +98,11 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     code = _build.dtype_code(qkv.dtype)
     lib = _build.load("attention_qkv", _SIGNATURES)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    scratch = _scratch(lib, B, N, num_heads, D, n_valid, code, qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.me_attention_qkv(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D,
+        rc = lib.me_attention_qkv(qkv.data_ptr(), out.data_ptr(), _ptr(scratch), B, N,
+                                  num_heads, D,
                                   n_valid, float(scale) * _LOG2E, code, stream)
     _build.check_launch(rc, "attention_qkv")
     attention_qkv.launches += 1
@@ -127,11 +146,12 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     code = _build.dtype_code(q.dtype)
     lib = _build.load("attention_qkv", _SIGNATURES)
     out = torch.empty((B, H, N, D), dtype=q.dtype, device=q.device)
+    scratch = _scratch(lib, B, N, H, D, n_valid, code, q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.me_attention_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                   B, H, N, D, n_valid, float(scale) * _LOG2E, code, strides,
+                                   _ptr(scratch), B, H, N, D, n_valid, float(scale) * _LOG2E, code, strides,
                                    stream)
     _build.check_launch(rc, "attention_flash")
     attention_flash.launches += 1

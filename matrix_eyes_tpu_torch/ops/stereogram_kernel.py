@@ -5,7 +5,10 @@ Port of ``matrix_eyes_tpu/ops/stereogram_kernel.py:linker_scan_tpu``. Per
 row, ``out[x] = noise[x]`` for x < pw and ``out[x] = out[x - pw +
 shift[x]]`` beyond, with 0 <= shift < win <= pw: every pixel is a copy of
 a seed pixel, found by following parent links. The kernel walks each row
-in steps of up to pw - win + 1 independent columns; the plain version
+in steps of up to pw - win + 1 independent columns, every step in shared
+memory (the row's shifts, its output bytes and the ring of resolved
+pixels); only a ring too large for shared memory (pw past ~32K columns)
+lives in a device scratch buffer that the wrapper allocates. The plain version
 resolves every chain at once by pointer doubling (``torch.gather``), as the
 JAX package does off the TPU. Both are bit-exact.
 """

@@ -11,9 +11,15 @@ given, each in its own process, so ``build/parent . . build/parent``
 times parent, change, change, parent on one card. For every shape the
 wrapper is called twice untimed, then ``--reps`` times under
 ``torch.profiler``: the device time of every kernel those calls launched
-(the wrapper's own kernel, a split-K reduce, a padding copy), divided by
-``--reps``. Unlike CUDA events around a loop of calls, this leaves out
+(the wrapper's own kernel, a split-K reduce, a padding copy, the f32
+attention's split pre-pass), divided by ``--reps``, in sum and by kernel
+name (``by_kernel``). Unlike CUDA events around a loop of calls, this leaves out
 the host's time per call, which sets the event time of the small shapes.
+
+For the attention rows the same is done for
+``F.scaled_dot_product_attention`` on contiguous (B, H, N, D) copies over
+the n_valid keys (``library_device_ms``), the yardstick of phase 3, timed
+here only; the port never calls it.
 
 Prints one JSON line per tree, then a table of device ms per call (shapes
 by trees) with the card's name and power limit.
@@ -53,6 +59,7 @@ def shapes() -> list:
 def child(tree: str, reps: int) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from matrix_eyes_tpu_torch.config import configure_precision
@@ -66,11 +73,19 @@ def child(tree: str, reps: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+    def sdpa(q, k, v, scale, n_valid):
+        nv = q.shape[2] if n_valid is None else n_valid
+        q, k, v = q.contiguous(), k[:, :, :nv].contiguous(), v[:, :, :nv].contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+
     def call_for(kind, shape):
+        """(the wrapper's call, the library call or None)"""
         if kind == "attn":
             B, N, H, D, dt, n_valid = shape
             qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=gen).to(dtypes[dt])
-            return lambda: attention_qkv(qkv, H, D ** -0.5, n_valid)
+            q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+            return (lambda: attention_qkv(qkv, H, D ** -0.5, n_valid),
+                    sdpa(q, k, v, D ** -0.5, n_valid))
         if kind == "flash":
             B, H, N, D, dt, n_valid, views = shape
             if views:
@@ -79,7 +94,8 @@ def child(tree: str, reps: int) -> dict:
             else:
                 q, k, v = (torch.randn(B, H, N, D, device=dev, generator=gen).to(dtypes[dt])
                            for _ in range(3))
-            return lambda: attention_flash(q, k, v, D ** -0.5, n_valid)
+            return (lambda: attention_flash(q, k, v, D ** -0.5, n_valid),
+                    sdpa(q, k, v, D ** -0.5, n_valid))
         if kind == "conv":
             B, H, W, cin, cout, dt, relu_in, n_skips, has_bias = shape
             dtype = dtypes[dt]
@@ -89,28 +105,20 @@ def child(tree: str, reps: int) -> dict:
             b = torch.randn(cout, device=dev, generator=gen).to(dtype) if has_bias else None
             skips = [torch.randn(B, H, W, cout, device=dev, generator=gen).to(dtype)
                      for _ in range(n_skips)] + [None] * (2 - n_skips)
-            return lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in)
+            return lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in), None
         H, W, amplitude = shape
         dm, pw = stereogram_geometry(W, amplitude)
         shift = torch.floor(torch.rand(H, W, device=dev, generator=gen) * dm + 0.5).to(torch.int32)
         noise = torch.randint(0, 256, (H, pw, 3), device=dev, generator=gen, dtype=torch.uint8)
-        return lambda: linker_scan(shift, noise, pw, _max_shift(dm) + 1)
+        return lambda: linker_scan(shift, noise, pw, _max_shift(dm) + 1), None
 
-    rows = {}
-    for label, kind, shape in shapes():
-        fn = call_for(kind, shape)
-        try:  # an older tree may not take every shape
-            fn()
-            fn()
-            torch.cuda.synchronize()
-        except (ValueError, RuntimeError) as e:
-            rows[label] = {"error": str(e)[:200]}
-            continue
+    def device_ms(fn):
+        """(ms per call, kernels per call, {kernel: ms per call})"""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us, launches = 0.0, 0
+        us, launches, by_kernel = 0.0, 0, {}
         for ev in prof.key_averages():
             t = getattr(ev, "self_device_time_total", None)
             if t is None:
@@ -118,7 +126,25 @@ def child(tree: str, reps: int) -> dict:
             if t:
                 us += t
                 launches += ev.count
-        rows[label] = {"device_ms": us / 1000.0 / reps, "kernels_per_call": launches / reps}
+                by_kernel[ev.key[:80]] = t / 1000.0 / reps
+        return us / 1000.0 / reps, launches / reps, by_kernel
+
+    rows = {}
+    for label, kind, shape in shapes():
+        fn, library = call_for(kind, shape)
+        try:  # an older tree may not take every shape
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        except (ValueError, RuntimeError) as e:
+            rows[label] = {"error": str(e)[:200]}
+            continue
+        ms, per_call, by_kernel = device_ms(fn)
+        rows[label] = {"device_ms": ms, "kernels_per_call": per_call, "by_kernel": by_kernel}
+        if library is not None:
+            library()
+            torch.cuda.synchronize()
+            rows[label]["library_device_ms"] = device_ms(library)[0]
     return {"tree": tree, "kind": torch.cuda.get_device_name(0), "rows": rows}
 
 

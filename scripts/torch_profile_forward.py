@@ -31,7 +31,8 @@ import sys
 def _group(name: str) -> str:
     """A kernel's family: the port's own kernels by name, the rest by kind."""
     for key in ("conv3x3_splitk_reduce", "conv3x3_wgmma", "conv3x3_mma", "conv3x3_kernel",
-                "attention_wgmma", "attention_mma", "attention_kernel", "linker_scan"):
+                "attention_wgmma", "attention_tf32", "split_tf32", "attention_mma",
+                "attention_kernel", "linker_scan"):
         if key in name:
             return key
     low = name.lower()
