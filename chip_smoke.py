@@ -14,23 +14,25 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
 3. each kernel entry against its plain PyTorch version on the card, at the
    shapes the main path gives it, with errors and warm times, the least
    time the card could take (``bound_ms``: the larger of the bytes over
-   3.35 TB/s and the FLOPs over 989 TFLOP/s bf16; f32 attention three
-   TF32 products at 495 TFLOP/s, with one f32 product on the CUDA cores at
-   67 TFLOP/s beside it as ``bound_cuda_core_ms``; the f32 conv 67) and,
-   where one PyTorch call computes the same function, that call's time
-   (``library_ms``: ``F.conv2d`` on the channels-last view with bias,
-   SDPA on contiguous (B, H, N, D); timing yardsticks the port never
-   calls): attention_qkv, attention_flash (the separate-q/k/v entry into
-   the same kernel; K and V kept whole and streamed), conv3x3 at every
-   distinct conv shape of the DEPTH_PRO forward, and linker_scan
-   (bit-exact);
+   3.35 TB/s and the FLOPs over 989 TFLOP/s bf16; f32 kernels three TF32
+   products at 495 TFLOP/s, with one f32 product on the CUDA cores at 67
+   TFLOP/s beside it as ``bound_cuda_core_ms``) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``:
+   ``F.conv2d`` on the channels-last view with bias, SDPA on contiguous
+   (B, H, N, D); timing yardsticks the port never calls): attention_qkv,
+   attention_flash (the separate-q/k/v entry into the same kernel; K and V
+   kept whole and streamed), conv3x3 at every distinct conv shape of the
+   DEPTH_PRO forward in bf16 and in f32, and linker_scan (bit-exact);
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
    photo at full DEPTH_PRO width (seeded random weights, bf16): launch
    counts, conv3x3's launches by shape (which weight phase 3's times into
    per-forward sums), finite inverse depth, a 4032x3024 PNG;
-5. the port on the card against the port on the CPU (plain versions) at
+5. the same path under ``--dtype f32`` (f32 weights from the same seed,
+   ``RuntimeConfig(dtype=torch.float32)``) on the phase-4 photo: the same
+   checks, every conv3x3 launch f32, and the f32 per-forward sums;
+6. the port on the card against the port on the CPU (plain versions) at
    MID, f32;
-6. the stereogram path on the phase-4 photo and weights, each run twice:
+7. the stereogram path on the phase-4 photo and weights, each run twice:
    the compact PNG (amplitude 1/16, no linker_scan launch), the
    device-resolved PNG (amplitude 0.1, shifts over 255: one launch) and a
    JPEG (one launch); both PNGs decode to 4032x3024 and equal the
@@ -38,10 +40,10 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the four paths (depth-map PNG, compact PNG, resolved PNG,
-JPEG), and ``launches`` the count on the path that runs the kernel: the
-depth-map PNG for attention_qkv and conv3x3, the resolved PNG for
-linker_scan. No path runs attention_flash (the ViT calls the fused entry):
+count on each of the five paths (depth-map PNG, the same in f32, compact
+PNG, resolved PNG, JPEG), and ``launches`` the count on the path that runs
+the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
+PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
 its ``launches`` is the depth-map run's count, 0.
 
 The last lines are the kernels' summary (JSON), the card's name and power
@@ -119,31 +121,35 @@ LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
 ]
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
-# residual-unit convs, the head's 2), then shapes off the main path. The
-# launches column is what the depth-map run must show, shape by shape
-# (conv3x3.launches_by_shape); the per-forward sums weight by that count.
-CONV_SHAPES = [
-    (1, 768, 768, 256, 256, "bf16", True, 2, True, 1),    # fused RCU, the hot shape
-    (1, 768, 768, 256, 256, "bf16", True, 1, True, 1),    # RCU conv2, one residual
-    (1, 768, 768, 256, 256, "bf16", True, 0, True, 2),    # RCU conv1
-    (1, 768, 768, 256, 128, "bf16", False, 0, True, 1),   # head conv0
-    (1, 768, 768, 136, 128, "bf16", False, 0, True, 1),   # head's composed conv
-    (1, 384, 384, 256, 256, "bf16", False, 0, False, 1),  # projection
-    (1, 384, 384, 256, 256, "bf16", True, 2, True, 1),
-    (1, 384, 384, 256, 256, "bf16", True, 1, True, 1),
-    (1, 384, 384, 256, 256, "bf16", True, 0, True, 2),
-    (1, 192, 192, 512, 256, "bf16", False, 0, False, 1),  # projection
-    (1, 192, 192, 256, 256, "bf16", True, 2, True, 1),
-    (1, 192, 192, 256, 256, "bf16", True, 1, True, 1),
-    (1, 192, 192, 256, 256, "bf16", True, 0, True, 2),
-    (1, 96, 96, 1024, 256, "bf16", False, 0, False, 1),   # projection
-    (1, 96, 96, 256, 256, "bf16", True, 2, True, 1),
-    (1, 96, 96, 256, 256, "bf16", True, 1, True, 1),
-    (1, 96, 96, 256, 256, "bf16", True, 0, True, 2),
-    (1, 48, 48, 1024, 256, "bf16", False, 0, False, 1),   # projection, K = 9216
-    (1, 48, 48, 256, 256, "bf16", True, 1, True, 1),
-    (1, 48, 48, 256, 256, "bf16", True, 0, True, 1),
-    (1, 96, 96, 256, 256, "f32", True, 2, True, None),    # RCU under --dtype f32
+# residual-unit convs, the head's 2) in bf16 and in f32 (--dtype f32), then
+# shapes off the main path. The launches column is what the depth-map run
+# of that dtype must show, shape by shape (conv3x3.launches_by_shape); the
+# per-forward sums weight by that count.
+_FORWARD_CONVS = [  # (H, W, Cin, Cout, relu_in, n_skips, bias, launches)
+    (768, 768, 256, 256, True, 2, True, 1),    # fused RCU, the hot shape
+    (768, 768, 256, 256, True, 1, True, 1),    # RCU conv2, one residual
+    (768, 768, 256, 256, True, 0, True, 2),    # RCU conv1
+    (768, 768, 256, 128, False, 0, True, 1),   # head conv0
+    (768, 768, 136, 128, False, 0, True, 1),   # head's composed conv
+    (384, 384, 256, 256, False, 0, False, 1),  # projection
+    (384, 384, 256, 256, True, 2, True, 1),
+    (384, 384, 256, 256, True, 1, True, 1),
+    (384, 384, 256, 256, True, 0, True, 2),
+    (192, 192, 512, 256, False, 0, False, 1),  # projection
+    (192, 192, 256, 256, True, 2, True, 1),
+    (192, 192, 256, 256, True, 1, True, 1),
+    (192, 192, 256, 256, True, 0, True, 2),
+    (96, 96, 1024, 256, False, 0, False, 1),   # projection
+    (96, 96, 256, 256, True, 2, True, 1),
+    (96, 96, 256, 256, True, 1, True, 1),
+    (96, 96, 256, 256, True, 0, True, 2),
+    (48, 48, 1024, 256, False, 0, False, 1),   # projection, K = 9216
+    (48, 48, 256, 256, True, 1, True, 1),
+    (48, 48, 256, 256, True, 0, True, 1),
+]
+CONV_SHAPES = [(1, H, W, cin, cout, dt, relu_in, n_skips, bias, launches)
+               for dt in ("bf16", "f32")
+               for H, W, cin, cout, relu_in, n_skips, bias, launches in _FORWARD_CONVS] + [
     (2, 7, 9, 8, 4, "f32", True, 1, True, None),          # TINY channels, odd sizes
     (2, 7, 9, 12, 5, "bf16", True, 2, True, None),        # odd channels: padded to 8
     (1, 5, 3, 129, 128, "f32", False, 0, True, None),     # 129 channels, tiny grid
@@ -243,8 +249,11 @@ def phase_environment() -> str:
     return smi
 
 
-_NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_splitk_reduce", "attention_wgmma_kernel",
-                "attention_tf32_kernel", "split_tf32_kernel", "linker_scan_kernel")
+_NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel", "conv3x3_split_weights",
+                "conv3x3_splitk_reduce", "attention_wgmma_kernel", "attention_tf32_kernel",
+                "split_tf32_kernel", "linker_scan_kernel")
+# template arguments as the mangled names spell them
+_MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|f"
 
 
 def _ptxas_lines(report: str) -> list:
@@ -261,8 +270,9 @@ def _ptxas_lines(report: str) -> list:
             name = None
             if base:
                 rest = mangled.split(base, 1)[1]
-                args = re.findall(r"L[ib](\d+)E", rest.split("EEv", 1)[0]) if rest.startswith(
-                    "I") else []
+                args = [m.group(1) or {"f": "float"}.get(m.group(0), "bf16")
+                        for m in re.finditer(_MANGLED_ARGS, rest.split("EEv", 1)[0])
+                        ] if rest.startswith("I") else []
                 name = base + (f"<{', '.join(args)}>" if args else "")
                 spill = ""
             continue
@@ -294,7 +304,8 @@ def phase_build() -> None:
     attn = ctypes.CDLL(paths[0])
     scan = ctypes.CDLL(paths[2])
     print(f"[2] dynamic shared memory per block: conv3x3_wgmma_kernel<256> "
-          f"{conv.me_conv3x3_smem_bytes(256)} B, <128> {conv.me_conv3x3_smem_bytes(128)} B; "
+          f"{conv.me_conv3x3_smem_bytes(256, 1)} B, <128> {conv.me_conv3x3_smem_bytes(128, 1)} B; "
+          f"conv3x3_tf32_kernel {conv.me_conv3x3_smem_bytes(128, 0)} B; "
           f"attention_wgmma_kernel<64> at 577 keys {attn.me_attention_smem_bytes(64, 577, 1)} B, "
           f"<32> at 577 keys {attn.me_attention_smem_bytes(32, 577, 1)} B; streamed K/V ring "
           f"<64> at 1025 keys {attn.me_attention_smem_bytes(64, 1025, 1)} B; "
@@ -331,19 +342,21 @@ def phase_kernels(dev) -> dict:
     hot = {}
     failures = []
 
-    def attention_bound(res, B, N, H, D, dt, n_valid):
+    def put_bound(res, flops, nbytes, dt):
         """bound_ms and bound_by into res; for f32 the least time at f32
         accuracy on the tensor cores (three TF32 products) and, beside it,
         one f32 product on the CUDA cores (bound_cuda_core_ms)."""
-        nv = N if n_valid is None else n_valid
-        e = 2 if dt == "bf16" else 4
-        # q and o over N rows, k and v over the n_valid keys that count
-        flops, nbytes = 4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e
         if dt == "bf16":
             res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, "bf16")
         else:
             res["bound_ms"], res["bound_by"] = bound_ms(3 * flops, nbytes, "tf32")
             res["bound_cuda_core_ms"] = bound_ms(flops, nbytes, "f32")[0]
+
+    def attention_bound(res, B, N, H, D, dt, n_valid):
+        nv = N if n_valid is None else n_valid
+        e = 2 if dt == "bf16" else 4
+        # q and o over N rows, k and v over the n_valid keys that count
+        put_bound(res, 4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e, dt)
 
     def bound_text(res):
         extra = (f", CUDA cores {res['bound_cuda_core_ms']:.4f}" if "bound_cuda_core_ms" in res
@@ -451,46 +464,51 @@ def phase_kernels(dev) -> dict:
         res["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, b, padding=1), reps)
         e = 2 if dt == "bf16" else 4
         m = B * H * W
-        res["bound_ms"], res["bound_by"] = bound_ms(
-            2.0 * m * 9 * cin * cout,
-            (m * cin + 9 * cin * cout + (cout if has_bias else 0) + (1 + n_skips) * m * cout) * e,
-            dt)
+        put_bound(res, 2.0 * m * 9 * cin * cout,
+                  (m * cin + 9 * cin * cout + (cout if has_bias else 0) + (1 + n_skips) * m * cout)
+                  * e, dt)
         res["shape"] = (f"{B}x{H}x{W} {cin}->{cout} {dt} relu_in={relu_in} skips={n_skips} "
                         f"bias={has_bias}")
         res["launches_per_forward"] = launches
-        if (H, cin, cout, dt, n_skips) == (768, 256, 256, "bf16", 2):
-            hot["conv3x3"] = res
+        if (H, cin, cout, n_skips) == (768, 256, 256, 2):
+            hot["conv3x3" if dt == "bf16" else "conv3x3_f32"] = res
         conv_rows[(B, H, W, cin, cout, dtype, relu_in, n_skips, has_bias)] = res
         print(f"[3] conv3x3 {res['shape']} x{launches or 0}/forward: "
               f"max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
               f"max_ref={res['max_ref']:.3e} ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-              f"library_ms(F.conv2d)={res['library_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
-              f"({res['bound_by']}) {'ok' if res['ok'] else 'FAIL'}")
+              f"library_ms(F.conv2d)={res['library_ms']:.4f} {bound_text(res)} "
+              f"{'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"conv3x3 {B, H, W, cin, cout, dt, n_skips}")
     require(not failures, f"kernels disagree with their plain versions: {failures}")
     return hot, conv_rows
 
 
-def conv_per_forward(conv_rows: dict, by_shape: dict) -> dict:
+def conv_per_forward(conv_rows: dict, by_shape: dict, dtype, phase: int) -> dict:
     """conv3x3's phase-3 times summed over one forward, each shape weighted
-    by its launches in the depth-map run (by_shape, from counted_run);
-    fails if the run launched a shape phase 3 did not time, or if the run's
-    launches differ from CONV_SHAPES' column."""
+    by its launches in the depth-map run of dtype (by_shape, from
+    counted_run); fails if the run launched a shape phase 3 did not time,
+    or if the run's launches differ from CONV_SHAPES' column for dtype."""
+    import torch
+
     untimed = [k for k in by_shape if k not in conv_rows]
     require(not untimed, f"the forward launched conv3x3 shapes phase 3 did not time: {untimed}")
     plan = {k: r["launches_per_forward"] for k, r in conv_rows.items()
-            if r["launches_per_forward"]}
+            if r["launches_per_forward"] and k[5] == dtype}
     require(by_shape == plan, f"conv3x3 launches by shape {by_shape}, CONV_SHAPES says {plan}")
+    keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+    keys += ["bound_cuda_core_ms"] if dtype == torch.float32 else []
     per_forward = {"launches": sum(by_shape.values())}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in keys:
         per_forward[key] = sum(n * conv_rows[k][key] for k, n in by_shape.items())
     for k, n in by_shape.items():
-        print(f"[4] conv3x3 {conv_rows[k]['shape']}: {n} launch(es) in the depth-map run")
-    print(f"[4] conv3x3 per DEPTH_PRO forward ({per_forward['launches']} launches, sum of "
+        print(f"[{phase}] conv3x3 {conv_rows[k]['shape']}: {n} launch(es) in the depth-map run")
+    extra = (f", CUDA-core bound {per_forward['bound_cuda_core_ms']:.3f}"
+             if "bound_cuda_core_ms" in per_forward else "")
+    print(f"[{phase}] conv3x3 per DEPTH_PRO forward ({per_forward['launches']} launches, sum of "
           f"launches x phase-3 ms): kernel {per_forward['ms']:.3f} ms, plain "
           f"{per_forward['plain_ms']:.3f}, library {per_forward['library_ms']:.3f}, "
-          f"bound {per_forward['bound_ms']:.3f}")
+          f"bound {per_forward['bound_ms']:.3f}{extra}")
     return per_forward
 
 
@@ -501,35 +519,22 @@ def _png_size(path: str):
     return struct.unpack(">II", head[16:24])
 
 
-def phase_main_path(dev) -> tuple:
-    import numpy as np
+def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
+    """``pipeline.extract_depth`` to a depth-map PNG, twice, at DEPTH_PRO
+    with params of dtype: launch counts and conv3x3's launches by shape of
+    each run (equal between runs, every conv in dtype), a 4032x3024 PNG, a
+    finite inverse depth and FOV. Returns the first run's counts and shapes."""
     import torch
 
-    from matrix_eyes_tpu_torch.io.image import SourceImage
     from matrix_eyes_tpu_torch import pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
     from matrix_eyes_tpu_torch.models import depth_pro
-    from matrix_eyes_tpu_torch.models.init import init_params
 
     cfg = DEPTH_PRO
-    runtime = RuntimeConfig(device=dev)
-    dtype = runtime.resolved_dtype()
-    require(dtype == torch.bfloat16, f"default dtype on CUDA should be bf16, got {dtype}")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, dtype)
-    torch.cuda.synchronize()
-    print(f"[4] random DEPTH_PRO weights on the card in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(0)
-    yy, xx = np.mgrid[0:3024, 0:4032]
-    rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
-    rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
-    src = SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
+    runtime = RuntimeConfig(device=dev, dtype=dtype)
     os.makedirs(OUT_DIR, exist_ok=True)
-    out_png = os.path.join(OUT_DIR, "chip_smoke_depthmap.png")
-
-    walls = []
-    counts = []
-    conv_shapes = []
+    out_png = os.path.join(OUT_DIR, f"chip_smoke_{name}.png")
+    walls, counts, conv_shapes = [], [], []
     for _ in range(2):
         t0 = time.perf_counter()
         _, c, shapes = counted_run(lambda: pipeline.extract_depth(
@@ -537,16 +542,18 @@ def phase_main_path(dev) -> tuple:
         walls.append(time.perf_counter() - t0)
         counts.append(c)
         conv_shapes.append(shapes)
-    print(f"[4] extract_depth wall s: first {walls[0]:.3f}, second {walls[1]:.3f}; "
-          f"launches per run: {counts}")
+    print(f"[{phase}] extract_depth ({name}) wall s: first {walls[0]:.3f}, second "
+          f"{walls[1]:.3f}; launches per run: {counts}")
     # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan on this path
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
               "attention_flash": 0}
     require(all(c == expect for c in counts),
             f"launch counts {counts}, expected {expect} per forward")
     require(conv_shapes[0] == conv_shapes[1], f"conv3x3 shapes differ between runs: {conv_shapes}")
+    require(all(k[5] == dtype for k in conv_shapes[0]),
+            f"conv3x3 launches of another dtype than {dtype}: {list(conv_shapes[0])}")
     size = _png_size(out_png)
-    print(f"[4] {out_png}: {size[0]}x{size[1]}, {os.path.getsize(out_png)} bytes")
+    print(f"[{phase}] {out_png}: {size[0]}x{size[1]}, {os.path.getsize(out_png)} bytes")
     require(size == (4032, 3024), f"depth map PNG is {size}, expected 4032x3024")
 
     img = pipeline.preprocess_image(src.rgb, cfg.img_size, dtype, dev)
@@ -554,10 +561,51 @@ def phase_main_path(dev) -> tuple:
     require(tuple(inv.shape) == (1, cfg.img_size, cfg.img_size), f"inverse depth {inv.shape}")
     require(bool(torch.isfinite(inv).all()) and bool(torch.isfinite(fov_deg).all()),
             "non-finite inverse depth or FOV")
-    print(f"[4] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
+    print(f"[{phase}] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
           f"{inv.max().item():.4g}], fov {fov_deg.item():.4f} deg; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts[0], conv_shapes[0], params, src
+    return counts[0], conv_shapes[0]
+
+
+def phase_main_path(dev) -> tuple:
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch.io.image import SourceImage
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
+    from matrix_eyes_tpu_torch.models.init import init_params
+
+    dtype = RuntimeConfig(device=dev).resolved_dtype()
+    require(dtype == torch.bfloat16, f"default dtype on CUDA should be bf16, got {dtype}")
+    t0 = time.perf_counter()
+    params = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev, dtype)
+    torch.cuda.synchronize()
+    print(f"[4] random DEPTH_PRO weights on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:3024, 0:4032]
+    rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
+    rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
+    src = SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
+    counts, conv_shapes = depth_map_runs(dev, params, src, dtype, 4, "depthmap")
+    return counts, conv_shapes, params, src
+
+
+def phase_f32_path(dev, src) -> tuple:
+    """The depth-map path under --dtype f32: f32 weights from phase 4's
+    seed, the phase-4 photo. Returns the first run's counts and conv3x3's
+    launches by shape."""
+    import torch
+
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.models.init import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.float32)
+    result = depth_map_runs(dev, params, src, torch.float32, 5, "depthmap_f32")
+    del params
+    torch.cuda.empty_cache()
+    return result
 
 
 def phase_end_to_end(dev) -> None:
@@ -586,7 +634,7 @@ def phase_end_to_end(dev) -> None:
     err = (can_gpu - can_cpu).abs()
     ok = fov_ok and bool((err <= E2E_ATOL + E2E_RTOL * can_cpu.abs()).all())
     raw = (inv_gpu - inv_cpu).abs().max().item()
-    print(f"[5] MID f32 card vs CPU: fov {fov_gpu.item():.6f} vs {fov_cpu.item():.6f} deg "
+    print(f"[6] MID f32 card vs CPU: fov {fov_gpu.item():.6f} vs {fov_cpu.item():.6f} deg "
           f"(f_norm {f_norm:.4g}); inverse depth x f_norm max_abs={err.max().item():.3e} "
           f"(raw inverse depth max_abs={raw:.3e}) {'ok' if ok else 'FAIL'}")
     require(ok, "the port on the card disagrees with the port on the CPU at MID f32")
@@ -632,7 +680,7 @@ def phase_stereogram(dev, params, src) -> dict:
             walls.append(time.perf_counter() - t0)
             counts.append(c)
         by_path[path] = counts[0]
-        print(f"[6] stereogram {name} (amplitude {amplitude:g}) wall s: first {walls[0]:.3f}, "
+        print(f"[7] stereogram {name} (amplitude {amplitude:g}) wall s: first {walls[0]:.3f}, "
               f"second {walls[1]:.3f}; launches per run: {counts}; "
               f"{os.path.getsize(out)} bytes")
         expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": want_scans,
@@ -644,7 +692,7 @@ def phase_stereogram(dev, params, src) -> dict:
         if fname.endswith(".png"):
             ref = depth_map.render_stereogram(None, amplitude, STEREO_SEED).cpu().numpy()
             same = bool(np.array_equal(img, ref))
-            print(f"[6] {name}: decoded pixels equal the kernel's device-resolved render: "
+            print(f"[7] {name}: decoded pixels equal the kernel's device-resolved render: "
                   f"{same}")
             require(same, f"stereogram {name}: PNG pixels differ from the device render")
     return by_path
@@ -670,7 +718,10 @@ def main() -> int:
     hot, conv_rows = phase_kernels(dev)
     by_path = {}
     by_path["depthmap_png"], conv_shapes, params, src = phase_main_path(dev)
-    hot["conv3x3"]["per_forward"] = conv_per_forward(conv_rows, conv_shapes)
+    hot["conv3x3"]["per_forward"] = conv_per_forward(conv_rows, conv_shapes, torch.bfloat16, 4)
+    by_path["depthmap_png_f32"], conv_shapes = phase_f32_path(dev, src)
+    hot["conv3x3"]["per_forward_f32"] = conv_per_forward(conv_rows, conv_shapes, torch.float32,
+                                                         5)
     phase_end_to_end(dev)
     by_path.update(phase_stereogram(dev, params, src))
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
@@ -693,8 +744,13 @@ def main() -> int:
                         "ms": hot[name]["ms"], "plain_ms": hot[name]["plain_ms"],
                         "bound_ms": hot[name]["bound_ms"], "bound_by": hot[name]["bound_by"],
                         "library_ms": hot[name]["library_ms"], "shape": hot[name]["shape"]})
-        if "per_forward" in hot[name]:
-            kernels[-1]["per_forward"] = hot[name]["per_forward"]
+        for key in ("per_forward", "per_forward_f32"):
+            if key in hot[name]:
+                kernels[-1][key] = hot[name][key]
+        if name == "conv3x3":  # the hot shape under --dtype f32
+            kernels[-1]["f32"] = {k: hot["conv3x3_f32"][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_cuda_core_ms")}
         if name == "attention_qkv":  # the FOV ViT's f32 call, 24 launches per forward
             fov = hot["attention_qkv_fov_f32"]
             kernels[-1]["fov_f32"] = {k: fov[k] for k in (

@@ -285,8 +285,10 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
 // ties away from zero). wgmma reads .tf32 operands K-major only (no
 // transpose bit); the register A operand of one k8 step of warp w holds
 // a[0] = (row 16w + g, k t), a[1] = (16w + g + 8, t), a[2] = (16w + g, t + 4),
-// a[3] = (16w + g + 8, t + 4), lane = 4g + t. In a 128-byte swizzled K-major
-// tile a k8 step advances the start address by 32 bytes, as a bf16 k16 does.
+// a[3] = (16w + g + 8, t + 4), lane = 4g + t: what ldmatrix_x4 returns for
+// f32 rows when lane l addresses row l % 16 at 16-byte chunk 2 kk + l / 16
+// (each b16 pair is one f32). In a 128- or 64-byte swizzled K-major tile a
+// k8 step advances the start address by 32 bytes, as a bf16 k16 does.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -304,6 +306,22 @@ __device__ __forceinline__ void wgmma_m64n64k8_ss(float (&d)[32], uint64_t desc_
       "%32, %33, p, 1, 1;\n}\n"
       : WG_ACC32(d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 128, f32) (+)= A(64 x 8, tf32 registers) * B(8 x 128, tf32, K-major in shared memory);
+// accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // D(64 x 64, f32) += A(64 x 8, tf32 registers) * B(8 x 64, tf32, K-major in shared memory)

@@ -4,10 +4,11 @@ and its plain version.
 Port of ``matrix_eyes_tpu/ops/conv3x3.py:conv3x3_pallas``: NHWC x HWIO +
 bias, optional ReLU on the input (``relu_in``), up to two residuals added
 in f32 in the epilogue (``skip``, ``skip2``), output in the input dtype.
-The bf16 kernel reads its operands by TMA, whose strides must be multiples
-of 16 bytes: channel counts that are not multiples of 8 are padded with
-zeros around the launch (``conv3x3_padded``). The TPU's lane and VMEM gates
-are not ported.
+Both kernels (bf16, and f32 as three TF32 products on the tensor cores)
+read their operands by TMA, whose strides must be multiples of 16 bytes:
+channel counts that are not multiples of 8 are padded with zeros around the
+launch (``conv3x3_padded``), which gives bf16 16-byte and f32 32-byte rows.
+The TPU's lane and VMEM gates are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ import torch.nn.functional as F
 from matrix_eyes_tpu_torch.ops import _build
 
 _SIGNATURES = {
+    "me_conv3x3_workspace_floats": (ctypes.c_longlong, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, Cin, Cout
+        ctypes.c_int, ctypes.c_int,                                          # dtype, splits
+    ]),
     "me_conv3x3": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # x, w, bias
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # skip, skip2, out
@@ -39,11 +44,16 @@ _SIGNATURES = {
 # (TC_BM in csrc/conv3x3.cu, which rejects any other band)
 TILE_PIXELS = 128
 _BAND_WIDTHS = (128, 64, 32, 16, 8)
+# input channels per K step (TC_BK, TF_BK in csrc/conv3x3.cu), the modelled
+# time of one 128 x 256 step and a block's fixed time (prologue, pipeline
+# fill, epilogue), as measured on the H100: bf16 ~1.05 us a step (no fixed
+# term); f32 ~2.2 us a step (1.1 at its 128-channel tile) and ~3.5 us a block
+_STEP = {torch.bfloat16: (64, 1.05e-6, 0.0), torch.float32: (32, 2.2e-6, 3.5e-6)}
 
 
 class Plan(NamedTuple):
-    """How the bf16 kernel cuts one call: the pixel band (wt columns x r
-    rows), the output-channel tile and the number of K splits."""
+    """How the kernel cuts one call: the pixel band (wt columns x r rows),
+    the output-channel tile and the number of K splits."""
 
     wt: int
     r: int
@@ -52,28 +62,34 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(B: int, H: int, W: int, cin: int, cout: int, sms: int = 132) -> Plan:
+def plan(B: int, H: int, W: int, cin: int, cout: int, sms: int = 132,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
     """The band that wastes the fewest pixels at the image's edges (wider
-    on ties); N tile 256 above 128 output channels; and, for grids that
-    leave SMs idle, the K split with the least modelled time: waves of
-    blocks x K steps per block at ~1 us per 128 x 256 x 64 step, plus the
-    split's f32 partials written and read at ~3 TB/s."""
+    on ties); N tile 256 above 128 output channels in bf16, else 128 (the
+    f32 kernel's two accumulators fit no wider); and, for grids that
+    leave SMs idle (fewer than four waves of blocks), the K split with the
+    least modelled time: waves of blocks x the time of a block's K steps
+    (``_STEP``: a step is one tap x 64 bf16 or 32 f32 input channels), plus
+    the split's f32 partials written and read at ~3 TB/s."""
     def waste(wt):
         r = TILE_PIXELS // wt
         return math.ceil(W / wt) * wt * math.ceil(H / r) * r
 
     wt = min(_BAND_WIDTHS, key=lambda w: (waste(w), -w))
-    bn = 256 if cout > 128 else 128
+    bn = 256 if cout > 128 and dtype == torch.bfloat16 else 128
     tiles = B * math.ceil(H / (TILE_PIXELS // wt)) * math.ceil(W / wt) * math.ceil(cout / bn)
-    steps = 9 * math.ceil(cin / 64)
-    step_s = 1.05e-6 * bn / 256
+    channels, step_s, block_s = _STEP[dtype]
+    steps = 9 * math.ceil(cin / channels)
+    step_s *= bn / 256
     partial_s = B * H * W * cout * 8 / 3.0e12
 
     def cost(s):
         per = math.ceil(steps / s)
-        return (math.ceil(tiles * math.ceil(steps / per) / sms) * per * step_s
+        return (math.ceil(tiles * math.ceil(steps / per) / sms) * (per * step_s + block_s)
                 + (s * partial_s if s > 1 else 0.0))
 
+    if tiles >= 4 * sms:  # a full card never pays for partial sums
+        return Plan(wt, TILE_PIXELS // wt, bn, 1)
     splits = min(range(1, min(16, steps) + 1), key=cost)
     splits = math.ceil(steps / math.ceil(steps / splits))  # no split left empty
     return Plan(wt, TILE_PIXELS // wt, bn, splits)
@@ -123,10 +139,9 @@ def _launch(x, w, b, skip, skip2, relu_in):
     code = _build.dtype_code(x.dtype)
     lib = _build.load("conv3x3", _SIGNATURES)
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-    p = plan(B, H, W, Cin, Cout, _sm_count(x.device))
-    workspace = None
-    if code == 1 and p.splits > 1:
-        workspace = torch.empty((p.splits, B, H, W, Cout), dtype=torch.float32, device=x.device)
+    p = plan(B, H, W, Cin, Cout, _sm_count(x.device), x.dtype)
+    floats = lib.me_conv3x3_workspace_floats(B, H, W, Cin, Cout, code, p.splits)
+    workspace = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -168,10 +183,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
             raise ValueError("conv3x3 operands must share the input's device and dtype")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("conv3x3 needs contiguous, 16-byte aligned operands")
-    if x.dtype == torch.bfloat16:
-        out = conv3x3_padded(_launch, x, w, b, skip, skip2, relu_in)
-    else:
-        out = _launch(x, w, b, skip, skip2, relu_in)
+    out = conv3x3_padded(_launch, x, w, b, skip, skip2, relu_in)
     conv3x3.launches += 1
     conv3x3.launches_by_shape[(B, H, W, Cin, Cout, x.dtype, bool(relu_in),
                                (skip is not None) + (skip2 is not None), b is not None)] += 1

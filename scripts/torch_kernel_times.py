@@ -3,7 +3,7 @@
 shapes of ``chip_smoke.py``'s phase 3 (its lists, imported from this
 checkout), on one CUDA card; several source trees compared in one call.
 
-    python3 scripts/torch_kernel_times.py TREE [TREE ...]
+    python3 scripts/torch_kernel_times.py [--dtype f32|bf16] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one, another unpacked with ``git archive``); the trees run in the order
@@ -18,8 +18,11 @@ the host's time per call, which sets the event time of the small shapes.
 
 For the attention rows the same is done for
 ``F.scaled_dot_product_attention`` on contiguous (B, H, N, D) copies over
-the n_valid keys (``library_device_ms``), the yardstick of phase 3, timed
-here only; the port never calls it.
+the n_valid keys, and for the conv rows for ``F.conv2d`` on the
+channels-last view with bias (true f32: cuDNN's TF32 is off), as
+``library_device_ms``: the yardsticks of phase 3, timed here only; the
+port never calls them. ``--dtype`` keeps the rows of one dtype (no
+linker_scan rows).
 
 Prints one JSON line per tree, then a table of device ms per call (shapes
 by trees) with the card's name and power limit.
@@ -38,8 +41,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the shape lists of its phase 3)
 
 
-def shapes() -> list:
-    """(label, kind, shape) for every row of chip_smoke.py's phase-3 lists."""
+def shapes(dtype: str = None) -> list:
+    """(label, kind, shape) for every row of chip_smoke.py's phase-3 lists,
+    or for those of one dtype."""
     rows = []
     for B, N, H, D, dt, n_valid in chip_smoke.ATTENTION_SHAPES:
         rows.append((f"attention_qkv B={B} N={N} H={H} D={D} {dt} n_valid={n_valid}", "attn",
@@ -53,10 +57,12 @@ def shapes() -> list:
                      (B, H, W, cin, cout, dt, relu_in, n_skips, bias)))
     for H, W, amplitude in chip_smoke.LINKER_SHAPES:
         rows.append((f"linker_scan {H}x{W} amplitude={amplitude:g}", "scan", (H, W, amplitude)))
-    return rows
+    if dtype is None:
+        return rows
+    return [r for r in rows if r[1] != "scan" and dtype in r[2]]
 
 
-def child(tree: str, reps: int) -> dict:
+def child(tree: str, reps: int, dtype: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import torch.nn.functional as F
@@ -105,7 +111,10 @@ def child(tree: str, reps: int) -> dict:
             b = torch.randn(cout, device=dev, generator=gen).to(dtype) if has_bias else None
             skips = [torch.randn(B, H, W, cout, device=dev, generator=gen).to(dtype)
                      for _ in range(n_skips)] + [None] * (2 - n_skips)
-            return lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in), None
+            xc = x.permute(0, 3, 1, 2)  # NHWC storage: the channels-last view
+            wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            return (lambda: conv3x3(x, w, b, skips[0], skips[1], relu_in),
+                    lambda: F.conv2d(xc, wc, b, padding=1))
         H, W, amplitude = shape
         dm, pw = stereogram_geometry(W, amplitude)
         shift = torch.floor(torch.rand(H, W, device=dev, generator=gen) * dm + 0.5).to(torch.int32)
@@ -130,7 +139,7 @@ def child(tree: str, reps: int) -> dict:
         return us / 1000.0 / reps, launches / reps, by_kernel
 
     rows = {}
-    for label, kind, shape in shapes():
+    for label, kind, shape in shapes(dtype):
         fn, library = call_for(kind, shape)
         try:  # an older tree may not take every shape
             fn()
@@ -152,10 +161,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", default=["."])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), help="only the rows of this dtype")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.reps)))
+        print(json.dumps(child(args.child, args.reps, args.dtype)))
         return 0
     import torch
 
@@ -167,19 +177,24 @@ def main() -> int:
     runs = []
     for tree in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
-                               "--reps", str(args.reps)], capture_output=True, text=True)
+                               "--reps", str(args.reps)]
+                              + (["--dtype", args.dtype] if args.dtype else []),
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]))
     print(f"card: {smi}")
-    print("| shape | " + " | ".join(f"{r['tree']} device ms" for r in runs) + " |")
-    print("|---" * (len(runs) + 1) + "|")
-    for label, _, _ in shapes():
+    print("| shape | " + " | ".join(f"{r['tree']} device ms" for r in runs)
+          + " | library device ms |")
+    print("|---" * (len(runs) + 2) + "|")
+    for label, _, _ in shapes(args.dtype):
         cells = [r["rows"][label].get("device_ms") for r in runs]
+        lib = [r["rows"][label].get("library_device_ms") for r in runs]
+        lib = [v for v in lib if v is not None]
         print(f"| {label} | " + " | ".join("error" if c is None else f"{c:.4f}" for c in cells)
-              + " |")
+              + " | " + ("-" if not lib else f"{min(lib):.4f}-{max(lib):.4f}") + " |")
     return 0
 
 

@@ -2,15 +2,17 @@
 """Device time of the PyTorch port's warm DEPTH_PRO forward, per forward and
 per kernel, on one CUDA card; several source trees compared in one call.
 
-    python3 scripts/torch_profile_forward.py TREE [TREE ...]
+    python3 scripts/torch_profile_forward.py [--dtype f32|bf16] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one, another unpacked with ``git archive``). The trees run in the order
 given, each in its own process (they hold packages of the same name), so
 ``build/parent . . build/parent`` times parent, change, change, parent on
-one card. Each run: random DEPTH_PRO weights from seed 0 in bf16, a random
-1536^2 input, two untimed forwards (they build the kernels), the wall of
-``--reps`` forwards between CUDA events, then ``--profiled`` forwards
+one card. Each run: random DEPTH_PRO weights from seed 0 in ``--dtype``
+(bf16 by default, the card's default; ``--dtype f32`` is the CLI's
+``--dtype f32``), a random 1536^2 input in that dtype, two untimed
+forwards (they build the kernels), the wall of ``--reps`` forwards
+between CUDA events, then ``--profiled`` forwards
 under ``torch.profiler`` for the device time of every kernel. The
 forward is ``models.depth_pro.forward_with_fov`` (encoder, decoder, head,
 FOV): the photo's decode, preprocess and output stages are not in it.
@@ -30,9 +32,10 @@ import sys
 
 def _group(name: str) -> str:
     """A kernel's family: the port's own kernels by name, the rest by kind."""
-    for key in ("conv3x3_splitk_reduce", "conv3x3_wgmma", "conv3x3_mma", "conv3x3_kernel",
-                "attention_wgmma", "attention_tf32", "split_tf32", "attention_mma",
-                "attention_kernel", "linker_scan"):
+    for key in ("conv3x3_splitk_reduce", "conv3x3_wgmma", "conv3x3_tf32",
+                "conv3x3_split_weights", "conv3x3_mma", "conv3x3_kernel", "attention_wgmma",
+                "attention_tf32", "split_tf32", "attention_mma", "attention_kernel",
+                "linker_scan"):
         if key in name:
             return key
     low = name.lower()
@@ -45,7 +48,7 @@ def _group(name: str) -> str:
     return "elementwise, reductions, other"
 
 
-def child(tree: str, reps: int, profiled: int) -> dict:
+def child(tree: str, reps: int, profiled: int, dtype_name: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -57,10 +60,11 @@ def child(tree: str, reps: int, profiled: int) -> dict:
     configure_precision()
     dev = torch.device("cuda", 0)
     cfg = DEPTH_PRO
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, dtype)
     gen = torch.Generator(device=dev).manual_seed(1)
     img = (torch.rand(1, cfg.img_size, cfg.img_size, 3, device=dev, generator=gen) * 2 - 1)
-    img = img.to(torch.bfloat16)
+    img = img.to(dtype)
 
     def forward():
         with torch.no_grad():
@@ -96,7 +100,7 @@ def child(tree: str, reps: int, profiled: int) -> dict:
         g = groups.setdefault(_group(name), [0.0, 0.0])
         g[0] += ms
         g[1] += calls
-    return {"tree": tree, "kind": torch.cuda.get_device_name(0),
+    return {"tree": tree, "kind": torch.cuda.get_device_name(0), "dtype": dtype_name,
             "forward_wall_ms": wall_ms,
             "device_ms_per_forward": sum(ms for ms, _ in kernels.values()),
             "groups": {g: {"ms": ms, "launches": calls} for g, (ms, calls) in groups.items()},
@@ -109,10 +113,11 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", default=["."])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.reps, args.profiled)))
+        print(json.dumps(child(args.child, args.reps, args.profiled, args.dtype)))
         return 0
     import torch
 
@@ -124,7 +129,8 @@ def main() -> int:
     runs = []
     for tree in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
-                               "--reps", str(args.reps), "--profiled", str(args.profiled)],
+                               "--reps", str(args.reps), "--profiled", str(args.profiled),
+                               "--dtype", args.dtype],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

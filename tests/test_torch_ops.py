@@ -229,7 +229,7 @@ def test_map_depth_bit_exact():
     np.testing.assert_array_equal(got, want)
 
 
-# --- the conv3x3 wrapper around the bf16 kernel ----------------------------------
+# --- the conv3x3 wrapper around the kernels --------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout,relu_in,n_skips", [
@@ -239,8 +239,9 @@ def test_map_depth_bit_exact():
     (16, 8, False, 0),     # already aligned: no padding, same call
 ])
 def test_conv3x3_channel_padding_gives_plain_result(dtype, cin, cout, relu_in, n_skips):
-    # the bf16 kernel takes channels in multiples of 8 (16-byte TMA strides);
-    # the wrapper pads with zeros around it, which must not change the result
+    # both kernels take channels in multiples of 8 (TMA strides of 16 bytes
+    # in bf16, 32 in f32); the wrapper pads with zeros around them, which
+    # must not change the result
     rng = np.random.RandomState(cin * 10 + cout)
     x = torch.from_numpy(_u(rng, (2, 6, 11, cin))).to(dtype)
     w = torch.from_numpy(_u(rng, (3, 3, cin, cout), -0.3, 0.3)).to(dtype)
@@ -263,6 +264,7 @@ def test_conv3x3_channel_padding_gives_plain_result(dtype, cin, cout, relu_in, n
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [
     (1, 768, 768, 256, 256),   # RCU at the finest decoder level
     (1, 384, 384, 256, 256),
@@ -273,12 +275,13 @@ def test_conv3x3_channel_padding_gives_plain_result(dtype, cin, cout, relu_in, n
     (1, 768, 768, 136, 128),   # head's composed conv
     (2, 7, 9, 8, 8),           # TINY widths, ragged edges
 ])
-def test_conv3x3_plan(shape):
+def test_conv3x3_plan(shape, dtype):
     B, H, W, cin, cout = shape
-    p = plan(B, H, W, cin, cout, sms=132)
+    p = plan(B, H, W, cin, cout, sms=132, dtype=dtype)
     assert p.wt * p.r == 128 and p.wt in (8, 16, 32, 64, 128)
-    assert p.bn == (256 if cout > 128 else 128)
-    steps = 9 * -(-cin // 64)
+    # f32 holds two accumulators per output: 128 channels a block
+    assert p.bn == (256 if cout > 128 and dtype == torch.bfloat16 else 128)
+    steps = 9 * -(-cin // (64 if dtype == torch.bfloat16 else 32))  # K steps of 128 bytes
     assert 1 <= p.splits <= steps
     per = -(-steps // p.splits)
     assert -(-steps // per) == p.splits  # every split has K steps (the kernel checks this)
