@@ -22,7 +22,10 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    (B, H, N, D); timing yardsticks the port never calls): attention_qkv,
    attention_flash (the separate-q/k/v entry into the same kernel; K and V
    kept whole and streamed), conv3x3 at every distinct conv shape of the
-   DEPTH_PRO forward in bf16 and in f32, and linker_scan (bit-exact);
+   DEPTH_PRO forward in bf16 and in f32, and linker_scan (bit-exact); and
+   the shapes of a batch of four photos (attention at B = 140 bf16 and the
+   FOV's B = 4 f32, conv3x3 at N = 4; under --dtype f32 attention at B =
+   140 and the N = 4 hot conv), with one conv past 2^31 elements;
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
    photo at full DEPTH_PRO width (seeded random weights, bf16): launch
    counts, conv3x3's launches by shape (which weight phase 3's times into
@@ -36,12 +39,30 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    the compact PNG (amplitude 1/16, no linker_scan launch), the
    device-resolved PNG (amplitude 0.1, shifts over 255: one launch) and a
    JPEG (one launch); both PNGs decode to 4032x3024 and equal the
-   device-resolved render of the same DepthMap and seed.
+   device-resolved render of the same DepthMap and seed;
+8. the mesh path on the phase-4 photo (written to disk as a PNG, which the
+   vertex colours and the texture refer to) and weights, each run twice: a
+   plain PLY, an OBJ with vertex colours and an OBJ with texture
+   coordinates and its .mtl; 72/24/0 launches, the headers' vertex and face
+   counts equal ``build_mesh`` of the same DepthMap, and the native OBJ
+   equals the Python writer's bytes;
+9. the batched path: five photos in a directory (the phase-4 photo and four
+   seeded variants, one a JPEG with an EXIF focal length, so the mixed
+   forward runs) through ``cli.main(["--batch-size=4", in, out])``: two
+   chunks (the first mixes known and estimated focal lengths, the second
+   is padded from 1 to 4), 144/48 launches, every PNG at its source size;
+   each photo's ``MatrixEyes.inverse_depth_batch`` at its chunk's shape
+   within the bf16 gate of the one-photo forward of ``MatrixEyes.depth_map``;
+   the PNGs within a mean of one count of the --batch-size=1 run's; then photos per second for the
+   directory at --batch-size=4 against 1, warm, in turns. The CLI's
+   checkpoint reader is answered with the phase-4 weights: the repository
+   holds no trained checkpoint.
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the five paths (depth-map PNG, the same in f32, compact
-PNG, resolved PNG, JPEG), and ``launches`` the count on the path that runs
+count on each of the seven paths (depth-map PNG, the same in f32, compact
+PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4 directory),
+and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
 its ``launches`` is the depth-map run's count, 0.
@@ -57,6 +78,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -73,6 +95,10 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-5
 # round the conv before the residual adds and the probabilities before
 # P V), so the bound is relative to the output's scale.
 BF16_REL = 2e-2
+# a directory's depth-map PNGs at --batch-size=4 against 1: the mean
+# difference in u8 counts per channel (bf16 rounding moves the viridis
+# index of a pixel by a step or two)
+PNG_MEAN_COUNTS = 1.0
 # end to end at MID f32 (plain versions on the CPU vs kernels on the card):
 # the same per-op rounding differences, carried through every stage.
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
@@ -99,6 +125,9 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (3, 70, 2, 8, "f32", None),        # TINY heads, ragged N
     (35, 65, 4, 32, "f32", None),      # MID heads
     (2, 130, 4, 32, "bf16", 100),      # MID heads, ragged N, masked
+    (140, 577, 16, 64, "bf16", None),  # patch ViT of a batch of four photos
+    (4, 577, 16, 64, "f32", None),     # FOV ViT of a batch of four photos
+    (140, 577, 16, 64, "f32", None),   # patch ViT of a batch of four under --dtype f32
 ]
 FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffer)
     (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
@@ -153,6 +182,10 @@ CONV_SHAPES = [(1, H, W, cin, cout, dt, relu_in, n_skips, bias, launches)
     (2, 7, 9, 8, 4, "f32", True, 1, True, None),          # TINY channels, odd sizes
     (2, 7, 9, 12, 5, "bf16", True, 2, True, None),        # odd channels: padded to 8
     (1, 5, 3, 129, 128, "f32", False, 0, True, None),     # 129 channels, tiny grid
+    (4, 768, 768, 256, 256, "bf16", True, 2, True, None),  # a batch of four: the hot shape
+    (4, 96, 96, 256, 256, "bf16", True, 2, True, None),    # and the 96^2 RCU
+    (4, 768, 768, 256, 256, "f32", True, 2, True, None),   # the hot shape of four, --dtype f32
+    (15, 768, 768, 256, 256, "bf16", True, 0, True, None),  # past 2^31 elements (64-bit offsets)
 ]
 
 
@@ -214,16 +247,22 @@ def compare(got, ref, dtype) -> dict:
     and whether they are within the stated tolerance for dtype."""
     import torch
 
-    g, r = got.float(), ref.float()
-    err = (g - r).abs()
-    max_ref = r.abs().max().item()
-    if dtype == torch.float32:
-        ok = bool((err <= F32_ATOL + F32_RTOL * r.abs()).all())
-    else:
-        ok = err.max().item() <= BF16_REL * max_ref
-    return {"max_abs_err": err.max().item(),
-            "max_rel_err": err.max().item() / max(max_ref, 1e-30),
-            "max_ref": max_ref, "ok": ok and bool(torch.isfinite(g).all())}
+    max_abs = max_ref = 0.0
+    ok = True
+    # a tensor past 2^28 elements is compared a slice of its first axis at a
+    # time, so that its f32 copies stay small
+    for g, r in zip(got, ref) if got.numel() > 2**28 else [(got, ref)]:
+        g, r = g.float(), r.float()
+        err = (g - r).abs()
+        max_abs = max(max_abs, err.max().item())
+        max_ref = max(max_ref, r.abs().max().item())
+        ok = ok and bool(torch.isfinite(g).all())
+        if dtype == torch.float32:
+            ok = ok and bool((err <= F32_ATOL + F32_RTOL * r.abs()).all())
+    if dtype != torch.float32:
+        ok = ok and max_abs <= BF16_REL * max_ref
+    return {"max_abs_err": max_abs, "max_rel_err": max_abs / max(max_ref, 1e-30),
+            "max_ref": max_ref, "ok": ok}
 
 
 def phase_environment() -> str:
@@ -385,6 +424,12 @@ def phase_kernels(dev) -> dict:
             hot["attention_qkv"] = res
         if (B, N, dt, n_valid) == (1, 577, "f32", None):
             hot["attention_qkv_fov_f32"] = res
+        if (B, N, dt, n_valid) == (140, 577, "bf16", None):
+            hot["attention_qkv_batch4"] = res
+        if (B, N, dt, n_valid) == (4, 577, "f32", None):
+            hot["attention_qkv_batch4_fov_f32"] = res
+        if (B, N, dt, n_valid) == (140, 577, "f32", None):
+            hot["attention_qkv_batch4_f32"] = res
         print(f"[3] attention {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -470,8 +515,12 @@ def phase_kernels(dev) -> dict:
         res["shape"] = (f"{B}x{H}x{W} {cin}->{cout} {dt} relu_in={relu_in} skips={n_skips} "
                         f"bias={has_bias}")
         res["launches_per_forward"] = launches
-        if (H, cin, cout, n_skips) == (768, 256, 256, 2):
+        if (B, H, cin, cout, n_skips) == (1, 768, 256, 256, 2):
             hot["conv3x3" if dt == "bf16" else "conv3x3_f32"] = res
+        if (B, H) == (4, 768):
+            hot["conv3x3_batch4" if dt == "bf16" else "conv3x3_batch4_f32"] = res
+        if B == 15:
+            hot["conv3x3_past_2e31"] = res
         conv_rows[(B, H, W, cin, cout, dtype, relu_in, n_skips, has_bias)] = res
         print(f"[3] conv3x3 {res['shape']} x{launches or 0}/forward: "
               f"max_abs={res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
@@ -480,6 +529,8 @@ def phase_kernels(dev) -> dict:
               f"{'ok' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"conv3x3 {B, H, W, cin, cout, dt, n_skips}")
+        del x, xc, skips
+    torch.cuda.empty_cache()
     require(not failures, f"kernels disagree with their plain versions: {failures}")
     return hot, conv_rows
 
@@ -698,6 +749,228 @@ def phase_stereogram(dev, params, src) -> dict:
     return by_path
 
 
+def write_photos(src) -> list:
+    """The phase-4 photo as a PNG and four seeded variants of it: mirrored,
+    a JPEG with an EXIF focal length of 28 mm, portrait and cropped.
+    Returns their paths, in the directory order."""
+    import numpy as np
+    from PIL import Image
+
+    from matrix_eyes_tpu_torch.output import png
+
+    d = os.path.join(OUT_DIR, "photos")
+    os.makedirs(d, exist_ok=True)
+    for name in os.listdir(d):
+        os.remove(os.path.join(d, name))
+    rng = np.random.RandomState(9)
+
+    def noisy(rgb):
+        return (rgb + rng.randint(-8, 9, rgb.shape)).clip(0, 255).astype(np.uint8)
+
+    rgb = src.rgb
+    h, w = rgb.shape[:2]
+    exif = Image.Exif()
+    exif[0xA405] = 28
+    # the JPEG sorts into the first chunk of four, beside photos without a
+    # focal length: that forward is the mixed one
+    photos = (("p0_photo.png", rgb), ("p1_mirrored.png", noisy(rgb[:, ::-1])),
+              ("p2_exif.jpg", noisy(np.roll(rgb, w // 6, axis=1))),
+              ("p3_portrait.png", noisy(rgb.transpose(1, 0, 2))),
+              ("p4_cropped.png", noisy(rgb[h // 10:h * 17 // 20, w // 8:w * 7 // 8])))
+    paths = []
+    for name, img in photos:
+        paths.append(os.path.join(d, name))
+        if name.endswith(".jpg"):
+            Image.fromarray(img).save(paths[-1], quality=95, exif=exif)
+        else:
+            png.save_rgb(np.ascontiguousarray(img), paths[-1])
+    return paths
+
+
+def _mesh_counts(path: str) -> tuple:
+    """(vertices, faces) as the file states them: the PLY header, or the
+    OBJ's v and f lines."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if path.endswith(".ply"):
+        header = data[:data.index(b"end_header\n")].decode()
+        return tuple(int(header.split(f"element {e} ")[1].split("\n")[0])
+                     for e in ("vertex", "face"))
+    return tuple(data.count(b"\n" + k) + data.startswith(k) for k in (b"v ", b"f "))
+
+
+def phase_mesh(dev, params, src, photo: str) -> dict:
+    """The mesh path at full DEPTH_PRO width from the phase-4 photo on disk;
+    returns the OBJ-with-vertex-colours run's launch counts."""
+    import numpy as np
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
+    from matrix_eyes_tpu_torch.native import meshwriter
+    from matrix_eyes_tpu_torch.output import writers
+    from matrix_eyes_tpu_torch.output.depthmap import DepthMap, VertexMode
+    from matrix_eyes_tpu_torch.output.mesh import build_mesh
+
+    require(meshwriter.available(), "the native OBJ serializer is missing")
+    cfg = DEPTH_PRO
+    runtime = RuntimeConfig(device=dev)
+    expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
+              "attention_flash": 0}
+    colors_counts = None
+    for name, fname, mode in (("PLY plain", "mesh_plain.ply", VertexMode.PLAIN),
+                              ("OBJ vertex-colors", "mesh_colors.obj", VertexMode.COLOR),
+                              ("OBJ texture-coordinates", "mesh_tex.obj", VertexMode.TEXTURE)):
+        out = os.path.join(OUT_DIR, fname)
+        walls, counts = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            depth_map, c, _ = counted_run(lambda: pipeline.extract_depth(
+                cfg, params, photo, out, vertex_mode=mode, runtime=runtime, source=src))
+            walls.append(time.perf_counter() - t0)
+            counts.append(c)
+        require(all(c == expect for c in counts),
+                f"mesh {name}: launch counts {counts}, expected {expect} per run")
+        grid = depth_map.data.cpu().numpy()
+        mesh = build_mesh(grid)
+        stated = _mesh_counts(out)
+        print(f"[8] mesh {name} wall s: first {walls[0]:.3f}, second {walls[1]:.3f}; launches "
+              f"per run: {counts}; {os.path.getsize(out)} bytes; vertices, faces {stated} "
+              f"(build_mesh {mesh.nvertices}, {mesh.nfaces})")
+        require(stated == (mesh.nvertices, mesh.nfaces),
+                f"mesh {name}: the file states {stated}, build_mesh gives "
+                f"{(mesh.nvertices, mesh.nfaces)}")
+        require(mesh.nfaces > 0, f"mesh {name}: no face kept")
+        if mode == VertexMode.TEXTURE:
+            mtl = os.path.join(OUT_DIR, "mesh_tex.mtl")
+            with open(mtl) as f:
+                require(f"map_Kd {photo}" in f.read(), "the .mtl does not name the photo")
+        if mode == VertexMode.COLOR:
+            colors_counts = counts[0]
+            image = DepthMap._load_grid_image(photo, grid.shape, dev).cpu().numpy()
+            py_out = os.path.join(OUT_DIR, "mesh_colors_python.obj")
+            t0 = time.perf_counter()
+            writers.write_obj(py_out, mesh, grid, src.original_size, mode.value, image,
+                              use_native=False)
+            with open(out, "rb") as a, open(py_out, "rb") as b:
+                same = a.read() == b.read()
+            print(f"[8] the native OBJ equals the Python writer's bytes: {same} (Python writer "
+                  f"{time.perf_counter() - t0:.1f} s)")
+            require(same, "the native OBJ differs from the Python writer's")
+            os.remove(py_out)
+            require(bool(np.isfinite(grid).all()), "non-finite depth grid")
+    return colors_counts
+
+
+def phase_batch(dev, params, photos: list) -> dict:
+    """The batched path through the CLI and the library session; returns
+    the batch-4 directory run's launch counts."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from matrix_eyes_tpu_torch import api, cli, pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.io.image import load_source_image
+    from matrix_eyes_tpu_torch.models import depth_pro
+    from matrix_eyes_tpu_torch.pt import convert
+
+    cfg = DEPTH_PRO
+
+    def phase4_weights(path, dtype, device, parts=convert.PARTS, cfg=None):
+        require(dtype == torch.bfloat16 and torch.device(device).type == "cuda",
+                f"checkpoint asked for {dtype} on {device}")
+        return DEPTH_PRO, {part: params[part] for part in parts}
+
+    convert.load_checkpoint = api.load_checkpoint = phase4_weights
+    in_dir = os.path.dirname(photos[0])
+    outs = {}
+    for bs in (4, 1):
+        outs[bs] = os.path.join(OUT_DIR, f"batch{bs}")
+        shutil.rmtree(outs[bs], ignore_errors=True)
+        os.makedirs(outs[bs])
+
+    def run_dir(bs):
+        argv = ([f"--batch-size={bs}"] if bs > 1 else []) + [in_dir, outs[bs]]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        require(rc == 0, f"cli.main({argv}) exited {rc}")
+        return time.perf_counter() - t0
+
+    mixed = []  # has_f of every mixed-focal forward of the batch-4 run
+    real_mixed = depth_pro.forward_with_mixed_fnorm
+    depth_pro.forward_with_mixed_fnorm = lambda *a: (
+        mixed.append(np.asarray(a[4]).tolist()) or real_mixed(*a))
+    t0 = time.perf_counter()
+    try:
+        _, counts, shapes = counted_run(lambda: run_dir(4))
+    finally:
+        depth_pro.forward_with_mixed_fnorm = real_mixed
+    first = time.perf_counter() - t0
+    expect = {"attention_qkv": 2 * 3 * cfg.depth, "conv3x3": 48, "linker_scan": 0,
+              "attention_flash": 0}
+    print(f"[9] cli --batch-size=4 over {len(photos)} photos: first run {first:.3f} s; "
+          f"launches {counts}; conv3x3 batch sizes {sorted({k[0] for k in shapes})}")
+    require(counts == expect, f"batch-4 launch counts {counts}, expected {expect}")
+    print(f"[9] mixed-focal forwards, has_f: {mixed}")
+    require(mixed == [[False, False, True, False], [False] * 4],
+            f"the mixed forward saw has_f {mixed}")
+    require({k[0] for k in shapes} == {4}, f"conv3x3 ran at batch sizes {shapes}")
+    for p in photos:
+        out = os.path.join(outs[4], os.path.splitext(os.path.basename(p))[0] + ".png")
+        with Image.open(p) as im:
+            want = im.size
+        require(_png_size(out) == want, f"{out} is {_png_size(out)}, its source {want}")
+    print(f"[9] every PNG decodes to its source size: "
+          f"{[_png_size(os.path.join(outs[4], n)) for n in sorted(os.listdir(outs[4]))]}")
+
+    # the library session at the CLI's chunk shapes: the first four photos,
+    # and the fifth padded to four with copies of itself (as the CLI pads
+    # it), each photo against the one-photo forward of MatrixEyes.depth_map
+    # (inverse_depth before the DepthMap's clamp, which would hide all but
+    # [0.004, 10] of the random weights' [1e-4, 1e4])
+    me = api.MatrixEyes("phase-4 weights")
+    batch = list(me.inverse_depth_batch(photos[:4])) + [
+        me.inverse_depth_batch(photos[4:] * 4)[0]]
+    for p, got in zip(photos, batch):
+        src = load_source_image(p)
+        img = pipeline.preprocess_image(src.rgb, cfg.img_size, me.runtime.resolved_dtype(), dev)
+        f_norm = src.f_norm()
+        one = (depth_pro.forward_with_fnorm(cfg, params, img, f_norm) if f_norm is not None
+               else depth_pro.forward_with_fov(cfg, params, img)[0])[0].cpu().numpy()
+        err = float(np.abs(got - one).max())
+        ref = float(np.abs(one).max())
+        print(f"[9] {os.path.basename(p)}: inverse_depth_batch at its chunk's shape vs its "
+              f"one-photo forward max_abs={err:.3e} max_ref={ref:.3e} ({err / ref:.2e} of max "
+              f"ref)")
+        require(np.isfinite(got).all() and err <= BF16_REL * ref,
+                f"{p}: the batch's inverse depth leaves the bf16 gate of its one-photo forward")
+    # the CLI's files at --batch-size=4 against --batch-size=1: a photo in
+    # another's slot differs by tens of counts on average, bf16 rounding by
+    # a fraction of one (a few grid pixels of the random weights flip across
+    # the clamp, so the largest difference says little)
+    run_dir(1)
+    for p in photos:
+        name = os.path.splitext(os.path.basename(p))[0] + ".png"
+        with Image.open(os.path.join(outs[4], name)) as a, \
+                Image.open(os.path.join(outs[1], name)) as b:
+            diff = np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16))
+        print(f"[9] {name}: --batch-size=4 vs 1 PNG pixels mean |diff| {diff.mean():.4f} "
+              f"counts, 99.9th percentile {np.percentile(diff, 99.9):.0f}, max "
+              f"{int(diff.max())}")
+        require(diff.mean() <= PNG_MEAN_COUNTS,
+                f"{name}: the batch-4 PNG leaves the gate of the batch-1 PNG (mean |diff| <= "
+                f"{PNG_MEAN_COUNTS} counts)")
+    walls = {4: [], 1: []}
+    for bs in (4, 1, 1, 4):
+        walls[bs].append(run_dir(bs))
+    rates = {bs: [len(photos) / w for w in ws] for bs, ws in walls.items()}
+    print(f"[9] warm directory of {len(photos)} photos, photos/s: --batch-size=4 "
+          f"{', '.join(f'{r:.3f}' for r in rates[4])}; --batch-size=1 "
+          f"{', '.join(f'{r:.3f}' for r in rates[1])} (walls s {walls})")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -724,6 +997,9 @@ def main() -> int:
                                                          5)
     phase_end_to_end(dev)
     by_path.update(phase_stereogram(dev, params, src))
+    photos = write_photos(src)
+    by_path["mesh_obj"] = phase_mesh(dev, params, src, photos[0])
+    by_path["batch4"] = phase_batch(dev, params, photos)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -751,11 +1027,21 @@ def main() -> int:
             kernels[-1]["f32"] = {k: hot["conv3x3_f32"][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "bound_cuda_core_ms")}
+        row_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")
         if name == "attention_qkv":  # the FOV ViT's f32 call, 24 launches per forward
             fov = hot["attention_qkv_fov_f32"]
-            kernels[-1]["fov_f32"] = {k: fov[k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "bound_cuda_core_ms")}
+            kernels[-1]["fov_f32"] = {k: fov[k] for k in row_keys + ("bound_cuda_core_ms",)}
+            # a batch of four photos: the patch ViT and the FOV ViT
+            kernels[-1]["batch4"] = {k: hot["attention_qkv_batch4"][k] for k in row_keys}
+            for key in ("batch4_fov_f32", "batch4_f32"):
+                kernels[-1][key] = {k: hot[f"attention_qkv_{key}"][k]
+                                    for k in row_keys + ("bound_cuda_core_ms",)}
+        if name == "conv3x3":
+            kernels[-1]["batch4"] = {k: hot["conv3x3_batch4"][k] for k in row_keys}
+            kernels[-1]["batch4_f32"] = {k: hot["conv3x3_batch4_f32"][k]
+                                         for k in row_keys + ("bound_cuda_core_ms",)}
+            kernels[-1]["past_2e31"] = {k: hot["conv3x3_past_2e31"][k] for k in row_keys}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,10 @@
 """matrix_eyes_tpu_torch: the PyTorch/CUDA port of matrix_eyes_tpu.
 
-Photo -> Apple Depth Pro inverse depth -> viridis depth-map PNG, on one
-NVIDIA Hopper GPU (or an autostereogram). Plain tensor code is PyTorch;
-the JAX package's Pallas kernels are CUDA C++ kernels written for sm_90a
+Photo -> Apple Depth Pro inverse depth -> viridis depth-map PNG, an
+autostereogram or an OBJ/PLY mesh, for one photo or a directory of them
+(a batch of photos per forward), from the CLI or the ``MatrixEyes`` library
+session, on one NVIDIA Hopper GPU. Plain tensor code is PyTorch; the JAX
+package's Pallas kernels are CUDA C++ kernels written for sm_90a
 (``csrc/``), built with nvcc on first use and bound through ctypes. On the
 CPU each kernel's wrapper runs its plain PyTorch version; the entry points
 run on the card unless the caller asks for the CPU (``device="cpu"``).
@@ -12,16 +14,22 @@ reference.
 
 Layer map:
   CLI            -> cli.py
-  orchestration  -> pipeline.py (decode, preprocess, model, output)
+  library        -> api.py (MatrixEyes)
+  orchestration  -> pipeline.py (decode, preprocess, model, output; one
+                    photo, or a batch per forward with the output one
+                    chunk behind)
   model          -> models/ (vit, encoder, decoder, head, fov, depth_pro)
   primitives     -> ops/ (nn, resize, colormap, attention)
   kernels        -> ops/flash_attention.py + csrc/attention_qkv.cu,
                     ops/conv3x3.py + csrc/conv3x3.cu,
                     ops/stereogram_kernel.py + csrc/linker_scan.cu
                     (csrc/hopper.cuh: TMA, mbarrier and wgmma helpers)
-  output         -> output/ (depth-map and stereogram render, PNG),
-                    native/ (host Lanczos3, striped PNG encoder)
-  host IO        -> io/image.py, errors.py, progress.py
+  output         -> output/depthmap.py (depth-map, stereogram and mesh
+                    render, host copies), output/png.py, output/mesh.py
+                    (triangulation), output/writers.py (OBJ, PLY, MTL),
+                    output/rust_format.py, native/ (host Lanczos3, striped
+                    PNG encoder, OBJ serializer)
+  host IO        -> io/image.py, errors.py, progress.py, timings.py
   weights        -> pt/convert.py, models/init.py
 """
 

@@ -1,0 +1,154 @@
+"""Library API: load the model once, process many photos (port of
+``matrix_eyes_tpu/api.py``).
+
+    from matrix_eyes_tpu_torch.api import MatrixEyes
+
+    me = MatrixEyes("./checkpoints/depth_pro.pt")     # on the card, bf16
+    depth = me.inverse_depth("photo.jpg")              # (1536, 1536) np.f32
+    me.process("photo.jpg", "out.png", image_format="stereogram")
+    me.process("photo.jpg", "mesh.obj", vertex_mode="plain")
+    me.process_batch([("a.jpg", "a.png"), ("b.jpg", "b.png")], batch_size=2)
+
+The session runs on the card unless ``device="cpu"`` is asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from matrix_eyes_tpu_torch.config import (
+    ModelConfig,
+    RuntimeConfig,
+    configure_precision,
+    parse_dtype,
+)
+from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
+from matrix_eyes_tpu_torch.models import depth_pro
+from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat, VertexMode
+from matrix_eyes_tpu_torch.pipeline import extract_depth_batch, forward_batch, preprocess_image
+from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
+
+Image = Union[str, np.ndarray, SourceImage]
+
+
+class MatrixEyes:
+    """A loaded model. ``dtype``: "f32"/"bf16" (as the CLI's ``--dtype``)
+    or a torch dtype, None for bf16 on the card and f32 on the CPU;
+    ``seed``: stereogram noise; ``cfg``: the architecture, inferred from
+    the checkpoint when None; ``device``: None for the card, "cpu" for the
+    CPU."""
+
+    def __init__(self, checkpoint_path: str, dtype: Union[str, torch.dtype, None] = None,
+                 seed: int = 0, cfg: Optional[ModelConfig] = None, device=None):
+        if isinstance(dtype, str):
+            dtype = parse_dtype(dtype)
+        self.runtime = RuntimeConfig(dtype=dtype, device=device, seed=seed)
+        configure_precision()
+        self.cfg, self.params = load_checkpoint(checkpoint_path,
+                                                dtype=self.runtime.resolved_dtype(),
+                                                device=self.runtime.resolved_device(), cfg=cfg)
+
+    # -- depth -------------------------------------------------------------
+
+    @staticmethod
+    def _load(image: Image, focal_length_35mm: Optional[float]) -> SourceImage:
+        if isinstance(image, SourceImage):
+            if focal_length_35mm is None:
+                return image
+            # an explicit focal length wins over the pre-loaded source's
+            return dataclasses.replace(image, focal_length_35mm=focal_length_35mm)
+        if isinstance(image, str):
+            return load_source_image(image, focal_length_35mm)
+        rgb = np.asarray(image, dtype=np.uint8)
+        return SourceImage(rgb=rgb, original_size=(rgb.shape[1], rgb.shape[0]),
+                           focal_length_35mm=focal_length_35mm)
+
+    def _preprocess(self, src: SourceImage) -> torch.Tensor:
+        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.resolved_dtype(),
+                                self.runtime.resolved_device())
+
+    def depth_map(self, image: Image, focal_length_35mm: Optional[float] = None) -> DepthMap:
+        """Run the network on one image; returns the DepthMap on the device."""
+        src = self._load(image, focal_length_35mm)
+        img = self._preprocess(src)
+        f_norm = src.f_norm()
+        if f_norm is not None:
+            inv = depth_pro.forward_with_fnorm(self.cfg, self.params, img, f_norm)[0]
+        else:
+            inv = depth_pro.forward_with_fov(self.cfg, self.params, img)[0][0]
+        return DepthMap.new(inv, src.original_size)
+
+    def inverse_depth(self, image: Image,
+                      focal_length_35mm: Optional[float] = None) -> np.ndarray:
+        """Clamped inverse depth at the model's grid, numpy f32."""
+        return self.depth_map(image, focal_length_35mm).to_numpy()
+
+    def inverse_depth_batch(self, images: Sequence[Image],
+                            focal_length_35mm: Union[float, Sequence[Optional[float]],
+                                                     None] = None) -> np.ndarray:
+        """One forward over a stack of images (paths or (H, W, 3) u8 arrays,
+        sizes may differ). ``focal_length_35mm``: None (each image's EXIF;
+        the FOV head fills the gaps), one value for all, or one per image
+        (None where unknown). Returns the model's (B, S, S) inverse depth,
+        f32, clamped to [1e-4, 1e4] as the forward clamps it."""
+        if not images:
+            return np.zeros((0, self.cfg.img_size, self.cfg.img_size), np.float32)
+        if focal_length_35mm is None or isinstance(focal_length_35mm, (int, float)):
+            focals = [focal_length_35mm] * len(images)
+        else:
+            focals = list(focal_length_35mm)
+            if len(focals) != len(images):
+                raise ValueError(f"{len(images)} images but {len(focals)} focal lengths")
+        srcs = [self._load(im, f) for im, f in zip(images, focals)]
+        return self._forward(srcs).cpu().numpy()
+
+    def _forward(self, sources: Sequence[SourceImage], pad: int = 0) -> torch.Tensor:
+        """One forward over the sources and ``pad`` copies of the last one's
+        preprocessed image: (B + pad, S, S) inverse depth on the device."""
+        imgs = [self._preprocess(s) for s in sources]
+        f_norms = [s.f_norm() for s in sources]
+        return forward_batch(self.cfg, self.params, torch.cat(imgs + imgs[-1:] * pad),
+                             f_norms + f_norms[-1:] * pad)
+
+    def depth_maps(self, sources: Sequence[SourceImage],
+                   pad_to_pow2: bool = False) -> List[DepthMap]:
+        """One batched forward over pre-loaded SourceImages; one DepthMap on
+        the device per image. ``pad_to_pow2`` pads the batch to the next
+        power of two with copies of the last preprocessed image (their
+        outputs are dropped), so a server sees few batch shapes."""
+        if not sources:
+            return []
+        n = len(sources)
+        inv = self._forward(sources, (1 << (n - 1).bit_length()) - n if pad_to_pow2 else 0)
+        return [DepthMap.new(inv[i], s.original_size) for i, s in enumerate(sources)]
+
+    # -- full pipeline -----------------------------------------------------
+
+    def process(self, source_path: str, destination_path: str,
+                focal_length_35mm: Optional[float] = None, image_format: str = "depthmap",
+                vertex_mode: str = "vertex-colors", resize_scale: Optional[float] = None,
+                stereo_amplitude: float = 1.0 / 16.0) -> None:
+        """Photo -> output file, the CLI's dispatch (output.rs:100-121)."""
+        self.depth_map(source_path, focal_length_35mm).output_image(
+            destination_path, source_path, image_format=ImageOutputFormat(image_format),
+            vertex_mode=VertexMode(vertex_mode), resize_scale=resize_scale,
+            amplitude=stereo_amplitude, seed=self.runtime.seed)
+
+    def process_batch(self, jobs: Sequence[Tuple[str, str]], batch_size: int = 4,
+                      focal_length_35mm: Optional[float] = None, image_format: str = "depthmap",
+                      vertex_mode: str = "vertex-colors", resize_scale: Optional[float] = None,
+                      stereo_amplitude: float = 1.0 / 16.0) -> None:
+        """Photos -> output files, one forward per ``batch_size`` images
+        (the CLI's ``--batch-size``; ``pipeline.extract_depth_batch``).
+        ``jobs``: ``(source_path, destination_path)`` pairs. A failed decode
+        or write skips that image; one ReconstructionError ("N of M images
+        failed") follows at the end. A model failure raises at once."""
+        extract_depth_batch(self.cfg, self.params, jobs, batch_size,
+                            focal_length_35mm=focal_length_35mm,
+                            image_format=ImageOutputFormat(image_format),
+                            vertex_mode=VertexMode(vertex_mode), resize_scale=resize_scale,
+                            stereo_amplitude=stereo_amplitude, runtime=self.runtime)

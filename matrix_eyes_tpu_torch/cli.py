@@ -7,10 +7,12 @@
   ``--help`` -> usage + exit 0;
 * reconstruction failure -> message + exit 1.
 
-The port runs one photo to a viridis depth map or an autostereogram.
-Flags and outputs of the JAX package that the port does not run yet
-(mesh, batch, devices, the f16/int8/mixed dtypes, ...) exit 2 with a
-message saying so.
+The port writes a viridis depth map, an autostereogram or an OBJ/PLY mesh,
+for one photo or (a directory source) for every photo of a directory,
+``--batch-size`` photos per forward. Flags of the JAX package that the port
+does not run yet (``--devices``, the f16/int8/mixed dtypes, ...) exit 2
+with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
+to stderr on exit.
 """
 
 from __future__ import annotations
@@ -23,11 +25,11 @@ from typing import List, Optional
 from matrix_eyes_tpu_torch import __version__
 
 USAGE_INSTRUCTIONS = """\
-Usage: matrix-eyes [OPTIONS] <IMG_SRC> <IMG_OUT>
+Usage: matrix-eyes [OPTIONS] <IMG_SRC>... <IMG_OUT>
 
 Arguments:
-  <IMG_SRC>  Source image
-  <IMG_OUT>  Output image
+  <IMG_SRC>...  Source image
+  <IMG_OUT>     Output image
 
 Options:
       --focal-length=<FOCAL_LENGTH>       Focal length in 35mm equivalent
@@ -35,13 +37,14 @@ Options:
       --image-output-format=<FORMAT>      Format for output [default: depthmap] [possible values: depthmap, stereogram]
       --resize-scale=<SCALE>              Custom scale for stereogram output [default: 1.0]
       --stereo-amplitude=<AMPLITUDE>      Custom scale for stereogram output [default: 0.0625]
+      --mesh=<MESH>                       Mesh options [default: vertex-colors] [possible values: plain, vertex-colors, texture-coordinates]
       --dtype=<DTYPE>                     Compute/parameter dtype [default: bf16 on CUDA, f32 elsewhere] [possible values: f32, bf16]
       --seed=<SEED>                       Stereogram noise seed [default: 0]
+      --batch-size=<N>                    Images per forward in directory mode [default: 1]
       --help                              Print help"""
 
 # flags of the JAX package's CLI that the port does not run yet
-_NOT_PORTED = ("--mesh", "--convert-checkpoints", "--devices", "--batch-size",
-               "--no-flash-attention", "--profile")
+_NOT_PORTED = ("--convert-checkpoints", "--devices", "--no-flash-attention", "--profile")
 
 
 @dataclass
@@ -51,8 +54,10 @@ class Args:
     output_format: str = "depthmap"
     resize_scale: Optional[float] = None
     stereo_amplitude: float = 1.0 / 16.0
+    vertex_mode: str = "vertex-colors"
     dtype: Optional[str] = None
     seed: int = 0
+    batch_size: int = 1
     img_src: str = ""
     img_out: str = ""
 
@@ -98,8 +103,15 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
                 args.resize_scale = parse_value(name, value, float)
             elif name == "--stereo-amplitude":
                 args.stereo_amplitude = parse_value(name, value, float)
+            elif name == "--mesh":
+                if value.lower() not in ("plain", "vertex-colors", "texture-coordinates"):
+                    raise _fail_usage(f"Unsupported mesh vertex output mode {value}", stderr,
+                                      stdout)
+                args.vertex_mode = value.lower()
             elif name == "--seed":
                 args.seed = parse_value(name, value, int)
+            elif name == "--batch-size":
+                args.batch_size = parse_value(name, value, _batch_size)
             elif name == "--checkpoint-path":
                 args.checkpoint_path = value
             elif name == "--dtype":
@@ -119,39 +131,108 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
         raise _fail_usage("No source image provided", stderr, stdout)
     if not args.img_out:
         raise _fail_usage("No output image provided", stderr, stdout)
-    if os.path.isdir(args.img_src):
-        raise _fail_usage("Directory sources are not supported by the PyTorch port yet",
-                          stderr, stdout)
-    if args.img_out.lower().endswith((".obj", ".ply")):
-        raise _fail_usage("Mesh output is not supported by the PyTorch port yet",
-                          stderr, stdout)
     return args
 
 
+def _batch_size(value: str) -> int:
+    n = int(value)  # ValueError on junk
+    if n < 1:
+        raise ValueError("batch size must be >= 1")
+    return n
+
+
+def _jobs(args: Args) -> list:
+    """(source, destination) pairs of a directory source: its .jpg, .jpeg
+    and .png files in sorted order, each written as a PNG of the same stem
+    into the output directory."""
+    from matrix_eyes_tpu_torch.errors import ReconstructionError
+
+    if not os.path.isdir(args.img_out):
+        raise ReconstructionError(f"IO error: {args.img_out} must be an existing directory when "
+                                  "the source is a directory")
+    sources = sorted(os.path.join(args.img_src, n) for n in os.listdir(args.img_src)
+                     if n.lower().endswith((".jpg", ".jpeg", ".png")))
+    if not sources:
+        raise ReconstructionError(f"IO error: no images in {args.img_src}")
+    return [(s, os.path.join(args.img_out, os.path.splitext(os.path.basename(s))[0] + ".png"))
+            for s in sources]
+
+
 def run(args: Args, progress=None, device=None) -> None:
-    """Load the checkpoint (the FOV part only when no focal length is
-    known) and run the pipeline on the CUDA card, or on ``device`` when a
-    programmatic caller names one ("cpu")."""
+    """Load the checkpoint (the FOV part only when some photo lacks a focal
+    length) and run the pipeline on the CUDA card, or on ``device`` when a
+    programmatic caller names one ("cpu"). A directory source runs every
+    photo: ``--batch-size`` per forward, or one at a time with the next
+    decode prefetched; a failed decode or write skips that photo, a model
+    failure ends the run."""
     from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype
-    from matrix_eyes_tpu_torch.io.image import load_source_image
-    from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
-    from matrix_eyes_tpu_torch.pipeline import extract_depth
+    from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
+    from matrix_eyes_tpu_torch.io.image import load_source_image, probe_focal_length_35mm
+    from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat, VertexMode
+    from matrix_eyes_tpu_torch.pipeline import extract_depth, extract_depth_batch
     from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
 
     runtime = RuntimeConfig(dtype=parse_dtype(args.dtype) if args.dtype else None,
                             device=device, seed=args.seed)
-    src = load_source_image(args.img_src, args.focal_length)
-    parts = ("encoder", "decoder", "head")
-    if src.f_norm() is None:
-        parts += ("fov",)
+    batch = os.path.isdir(args.img_src)
+    if batch:
+        jobs = [(s, o, None) for s, o in _jobs(args)]
+        # the EXIF headers alone decide whether the FOV weights are needed
+        need_fov = args.focal_length is None and any(
+            probe_focal_length_35mm(s) is None for s, _o, _src in jobs)
+    else:
+        jobs = [(args.img_src, args.img_out, load_source_image(args.img_src, args.focal_length))]
+        need_fov = jobs[0][2].f_norm() is None
+        if args.batch_size > 1:
+            print("--batch-size only applies when the source is a directory; ignored",
+                  file=sys.stderr)
+    parts = ("encoder", "decoder", "head") + (("fov",) if need_fov else ())
     if progress is not None:
         progress.update_message("reading checkpoint")
     cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
                                   device=runtime.resolved_device(), parts=parts)
-    extract_depth(cfg, params, args.img_src, args.img_out, focal_length_35mm=args.focal_length,
-                  image_format=ImageOutputFormat(args.output_format),
-                  resize_scale=args.resize_scale, stereo_amplitude=args.stereo_amplitude,
-                  runtime=runtime, progress=progress, source=src)
+    options = dict(focal_length_35mm=args.focal_length,
+                   image_format=ImageOutputFormat(args.output_format),
+                   vertex_mode=VertexMode(args.vertex_mode), resize_scale=args.resize_scale,
+                   stereo_amplitude=args.stereo_amplitude, runtime=runtime, progress=progress)
+    if batch and args.batch_size > 1:
+        extract_depth_batch(cfg, params, [(s, o) for s, o, _src in jobs], args.batch_size,
+                            **options)
+        return
+
+    # one photo at a time; the next photo decodes on a worker thread while
+    # this one runs (a failed prefetch decodes again in the pipeline, which
+    # reports it with its stage message). This loop wrote more photos per
+    # second on an H100 than extract_depth_batch at batch size 1 (PERF.md)
+    pool = next_fut = None
+    if len(jobs) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="me-decode")
+    failed = 0
+    try:
+        for i, (src_path, out_path, src) in enumerate(jobs):
+            if next_fut is not None:
+                try:
+                    src = next_fut.result()
+                except Exception:
+                    src = None
+                next_fut = None
+            if pool is not None and i + 1 < len(jobs):
+                next_fut = pool.submit(load_source_image, jobs[i + 1][0], args.focal_length)
+            try:
+                extract_depth(cfg, params, src_path, out_path, source=src, **options)
+            except MatrixEyesError as err:
+                # a photo's decode or write fails that photo only; a model
+                # failure is systemic (device, weights) and ends the run
+                if not batch or getattr(err, "stage", None) not in ("load", "output"):
+                    raise
+                failed += 1
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+    if failed:
+        raise ReconstructionError(f"{failed} of {len(jobs)} images failed")
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -167,6 +248,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     from matrix_eyes_tpu_torch.errors import MatrixEyesError
     from matrix_eyes_tpu_torch.progress import ConsoleProgressReporter
 
+    from matrix_eyes_tpu_torch import timings
+
     pb = ConsoleProgressReporter()
     try:
         run(args, progress=pb, device=device)
@@ -176,6 +259,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         return 1
     finally:
         pb.finish_and_clear()
+        timings.report()
     return 0
 
 

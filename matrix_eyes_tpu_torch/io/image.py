@@ -47,6 +47,24 @@ class SourceImage:
         return float(np.float32(f_px / float(self.original_size[0])))
 
 
+def probe_focal_length_35mm(path: str) -> Optional[float]:
+    """The EXIF FocalLengthIn35mmFilm tag alone, without decoding pixels
+    (PIL decodes lazily, so this reads the header only); None when the file
+    has none or cannot be read. Directory mode uses it to load the FOV
+    weights only when some photo lacks a focal length."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            exif = im.getexif()
+            raw = exif.get_ifd(0x8769).get(_EXIF_FOCAL_35MM) if exif else None
+            if raw is None and exif:
+                raw = exif.get(_EXIF_FOCAL_35MM)
+            return float(int(raw)) if raw is not None else None
+    except Exception:
+        return None
+
+
 def load_source_image(path: str, focal_length_35mm: Optional[float] = None) -> SourceImage:
     from PIL import Image, ImageOps
 

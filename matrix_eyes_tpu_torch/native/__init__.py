@@ -1,6 +1,7 @@
 """Host (C++) libraries of the port: the Lanczos3 RGB8 resizer
-(``lanczos.cpp``) and the striped PNG encoder (``pngwriter.cpp``), the
-port's own copies of the JAX package's ``native`` sources.
+(``lanczos.cpp``), the striped PNG encoder (``pngwriter.cpp``) and the OBJ
+serializer (``meshwriter.cpp``), the port's own copies of the JAX
+package's ``native`` sources.
 
 Each builds with ``g++`` on first use into the git-ignored ``_build/``
 directory of the package, beside the CUDA libraries, under a name hashed

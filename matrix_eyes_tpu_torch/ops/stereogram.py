@@ -7,8 +7,9 @@ scan carrying a loop dependency in x::
 
 Two forms, as in the JAX package:
 
-* compact (``synthesize_stereogram_split``): the u8 shift plane and the
-  (H, pw, 3) noise; the native PNG encoder replays the scan on the host;
+* compact (``synthesize_stereogram_split``): the u8 shift plane (on the
+  device, for the caller to read back) and the (H, pw, 3) noise; the
+  native PNG encoder replays the scan on the host;
 * device-resolved (``synthesize_stereogram``), routed as the JAX
   package's ``_synthesize``: ``pw == 0`` gives full-size noise; the
   ``wide`` self-link case (win > pw) gives full-width noise and pointer
@@ -120,12 +121,13 @@ def synthesize_stereogram(depth: torch.Tensor, out_h: int, out_w: int, amplitude
 
 def synthesize_stereogram_split(depth: torch.Tensor, out_h: int, out_w: int, amplitude: float,
                                 seed: int = 0):
-    """The compact form on the host: (pw, shift (out_h, out_w) u8, noise
-    (out_h, pw, 3) u8) as numpy arrays, the shift plane read back in one
-    transfer; or None when the compact form does not apply."""
+    """The compact form: (pw, shift (out_h, out_w) u8 on the depth's device,
+    noise (out_h, pw, 3) u8 numpy on the host), the caller reading the shift
+    plane back in one transfer; or None when the compact form does not
+    apply."""
     geo = _split_geometry(out_w, amplitude)
     if geo is None:
         return None
     dm, pw = geo
-    shift = shift_plane(depth, out_h, out_w, dm, torch.uint8).cpu().numpy()
+    shift = shift_plane(depth, out_h, out_w, dm, torch.uint8)
     return pw, shift, stereogram_noise(seed, out_h, pw).numpy()

@@ -298,9 +298,11 @@ def from_jax_params(cfg: ModelConfig, params_np: Dict[str, Any], device,
 
 
 def load_checkpoint(path: str, dtype: torch.dtype = torch.float32, device="cpu",
-                    parts: Sequence[str] = PARTS) -> Tuple[ModelConfig, Dict[str, Any]]:
+                    parts: Sequence[str] = PARTS,
+                    cfg: Optional[ModelConfig] = None) -> Tuple[ModelConfig, Dict[str, Any]]:
     """Read ``depth_pro.pt`` (``torch.load(weights_only=True)``), infer the
-    config from its shapes and return (cfg, params) on ``device``."""
+    config from its shapes unless ``cfg`` is given, and return (cfg,
+    params) on ``device``."""
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     except FileNotFoundError:
@@ -311,5 +313,5 @@ def load_checkpoint(path: str, dtype: torch.dtype = torch.float32, device="cpu",
         sd = sd["state_dict"]
     flat = {k: v.float().numpy() for k, v in sd.items()
             if isinstance(v, torch.Tensor) and v.is_floating_point()}
-    cfg = infer_config(flat)
+    cfg = cfg or infer_config(flat)
     return cfg, _to_torch(convert_state_dict(cfg, flat, parts), device, dtype)

@@ -9,9 +9,11 @@ For every shape: the kernel against its plain version (max abs and
 relative error, and how many outputs fall outside the f32 tolerance, rtol
 1e-4 / atol 1e-5, which says whether an error is one outlier or a bias),
 and its warm time by CUDA events beside ``F.conv2d``'s. With ``--splits``,
-for the shapes of the forward instead: the device time (``torch.profiler``)
-at every K split the kernel takes, the plan's own first; the data that the
-cost model of ``ops/conv3x3.py::plan`` is fitted to. Exits 1 if a shape
+for the shapes of the forward and of a batch of four photos instead: the
+device time (``torch.profiler``)
+at every K split the kernel takes, the plan's own first, and for bf16 at
+the other output-channel tile (128 or 256) with the plan's split; the data
+that the cost model of ``ops/conv3x3.py::plan`` is fitted to. Exits 1 if a shape
 disagrees with its plain version.
 """
 
@@ -65,7 +67,7 @@ def main() -> int:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     bad = 0
     for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias, launches in chip_smoke.CONV_SHAPES:
-        if (args.dtype and dt != args.dtype) or (args.splits and not launches):
+        if (args.dtype and dt != args.dtype) or (args.splits and not (launches or B == 4)):
             continue
         dtype = dtypes[dt]
         x = torch.randn(B, H, W, cin, device=dev, generator=gen).to(dtype)
@@ -84,8 +86,13 @@ def main() -> int:
                     continue  # the kernel refuses a split left empty
                 m.plan = lambda *_a, s=s: planned._replace(splits=s)  # the wrapper's plan
                 times.append(f"{s}:{device_ms(lambda: m.conv3x3(x, w, b, *skips, relu_in)):.4f}")
+            if dtype == torch.bfloat16 and cout > 128:  # the other N tile, the plan's split
+                other = 384 - planned.bn
+                m.plan = lambda *_a: planned._replace(bn=other)
+                times.append(f"bn{other}:{device_ms(lambda: m.conv3x3(x, w, b, *skips, relu_in)):.4f}")
             m.plan = plan
-            print(f"{shape}: device ms by split (plan's first) {' '.join(times)}", flush=True)
+            print(f"{shape}: device ms by split (plan's first, bn {planned.bn}) "
+                  f"{' '.join(times)}", flush=True)
             continue
         got = m.conv3x3(x, w, b, skips[0], skips[1], relu_in)
         want = m.conv3x3_plain(x, w, b, skips[0], skips[1], relu_in)

@@ -10,7 +10,8 @@ given, each in its own process (they hold packages of the same name), so
 ``build/parent . . build/parent`` times parent, change, change, parent on
 one card. Each run: random DEPTH_PRO weights from seed 0 in ``--dtype``
 (bf16 by default, the card's default; ``--dtype f32`` is the CLI's
-``--dtype f32``), a random 1536^2 input in that dtype, two untimed
+``--dtype f32``), ``--batch`` random 1536^2 inputs in that dtype (one
+forward over the batch, as ``--batch-size`` runs it), two untimed
 forwards (they build the kernels), the wall of ``--reps`` forwards
 between CUDA events, then ``--profiled`` forwards
 under ``torch.profiler`` for the device time of every kernel. The
@@ -48,7 +49,7 @@ def _group(name: str) -> str:
     return "elementwise, reductions, other"
 
 
-def child(tree: str, reps: int, profiled: int, dtype_name: str) -> dict:
+def child(tree: str, reps: int, profiled: int, dtype_name: str, batch: int = 1) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -63,7 +64,7 @@ def child(tree: str, reps: int, profiled: int, dtype_name: str) -> dict:
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, dtype)
     gen = torch.Generator(device=dev).manual_seed(1)
-    img = (torch.rand(1, cfg.img_size, cfg.img_size, 3, device=dev, generator=gen) * 2 - 1)
+    img = (torch.rand(batch, cfg.img_size, cfg.img_size, 3, device=dev, generator=gen) * 2 - 1)
     img = img.to(dtype)
 
     def forward():
@@ -101,7 +102,7 @@ def child(tree: str, reps: int, profiled: int, dtype_name: str) -> dict:
         g[0] += ms
         g[1] += calls
     return {"tree": tree, "kind": torch.cuda.get_device_name(0), "dtype": dtype_name,
-            "forward_wall_ms": wall_ms,
+            "batch": batch, "forward_wall_ms": wall_ms,
             "device_ms_per_forward": sum(ms for ms, _ in kernels.values()),
             "groups": {g: {"ms": ms, "launches": calls} for g, (ms, calls) in groups.items()},
             "top": sorted(([n[:90], ms, calls] for n, (ms, calls) in kernels.items()),
@@ -114,10 +115,11 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--batch", type=int, default=1, help="photos per forward")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.reps, args.profiled, args.dtype)))
+        print(json.dumps(child(args.child, args.reps, args.profiled, args.dtype, args.batch)))
         return 0
     import torch
 
@@ -130,7 +132,7 @@ def main() -> int:
     for tree in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
                                "--reps", str(args.reps), "--profiled", str(args.profiled),
-                               "--dtype", args.dtype],
+                               "--dtype", args.dtype, "--batch", str(args.batch)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

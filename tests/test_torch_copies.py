@@ -2,13 +2,15 @@
 their originals on seeded inputs, and the port's device policy.
 
 The port imports nothing of the JAX package, so it carries copies of the
-error hierarchy, the progress listeners, the image loader, the viridis
-tables and the two native host libraries (Lanczos3 resizer, striped PNG
-encoder). Each copy must give what its original gives: the same bytes, the
+error hierarchy, the progress listeners, the image loader with its EXIF
+probe, the stage timings, the viridis tables and the native host libraries
+(Lanczos3 resizer, striped PNG encoder; the OBJ serializer and the mesh
+modules are held in test_torch_mesh.py). Each copy must give what its original gives: the same bytes, the
 same decoded image and EXIF focal length, the same tables.
 """
 
 import inspect
+import io
 import os
 
 import numpy as np
@@ -129,6 +131,51 @@ def test_load_source_image_copy_matches_jax(tmp_path, kind, focal):
     assert got.f_norm() == want.f_norm()
     if kind == "exif_rotated":
         assert got.original_size == (30, 44) and got.focal_length_35mm == 28.0
+
+
+@pytest.mark.parametrize("kind", ["png", "plain_jpeg", "exif_focal", "exif_rotated",
+                                  "broken", "missing"])
+def test_probe_focal_length_copy_matches_jax(tmp_path, kind):
+    # header only: a file without EXIF, without the tag, with it, rotated; a
+    # JPEG whose header is cut off and a missing file give None
+    path = str(tmp_path / ("src.png" if kind == "png" else "src.jpg"))
+    if kind == "broken":
+        _write(path, "exif_focal")
+        data = open(path, "rb").read()
+        open(path, "wb").write(data[:40])
+    elif kind != "missing":
+        _write(path, kind)
+    got = timage.probe_focal_length_35mm(path)
+    assert got == jimage.probe_focal_length_35mm(path)
+    assert got == (28.0 if kind in ("exif_focal", "exif_rotated") else None)
+
+
+def test_timings_copy_matches_jax(monkeypatch):
+    # the same spans give the same table, up to the seconds
+    import re
+
+    from matrix_eyes_tpu import timings as jtimings
+    from matrix_eyes_tpu_torch import timings as ttimings
+
+    monkeypatch.setenv("MATRIX_EYES_TIMINGS", "1")
+    tables = []
+    for mod in (jtimings, ttimings):
+        for name in ("decode source image", "model forward", "model forward", "write output"):
+            with mod.span(name):
+                pass
+        snap = mod.snapshot()
+        assert [(k, n) for k, (n, _t) in snap.items()] == [
+            ("decode source image", 1), ("model forward", 2), ("write output", 1)]
+        out = io.StringIO()
+        mod.report(out)
+        # seconds, and the padding of their field, differ between the runs
+        tables.append(re.sub(r" +\d+\.\d{3} s", " T s", out.getvalue()))
+        assert mod.snapshot() == {}
+    assert tables[0] == tables[1] and "model forward" in tables[1]
+    monkeypatch.setenv("MATRIX_EYES_TIMINGS", "0")
+    with ttimings.span("off"):
+        pass
+    assert ttimings.snapshot() == {} and not ttimings.enabled()
 
 
 def test_load_source_image_copy_raises_the_ports_error(tmp_path):

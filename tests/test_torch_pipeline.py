@@ -135,9 +135,9 @@ def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     ["--focal-length=abc", "a.jpg", "b.png"],      # bad value
     ["--dtype=int8", "a.jpg", "b.png"],            # dtype policy not ported
     ["--devices=2", "a.jpg", "b.png"],             # flag not ported
-    ["--mesh=plain", "a.jpg", "b.png"],            # flag not ported
-    ["--batch-size=2", "a.jpg", "b.png"],          # flag not ported
-    ["a.jpg", "b.obj"],                            # mesh output not ported
+    ["--mesh=bogus", "a.jpg", "b.obj"],            # unknown vertex mode
+    ["--batch-size=0", "a.jpg", "b.png"],          # batch size below 1
+    ["--batch-size=x", "a.jpg", "b.png"],          # bad value
     ["a.jpg", "b.png", "--focal-length=28"],       # options only before positionals
     ["--seed=abc", "a.jpg", "b.png"],              # bad value
     ["--resize-scale=x", "a.jpg", "b.png"],        # bad value
@@ -150,6 +150,26 @@ def test_cli_bad_arguments_exit_2(argv):
     assert e.value.code == 2
     assert "Usage:" in out.getvalue() and err.getvalue()
     assert tcli.main(argv) == 2
+
+
+@pytest.mark.parametrize("flag", ["--convert-checkpoints", "--no-flash-attention",
+                                  "--profile=trace"])
+def test_cli_jax_only_flags_exit_2(flag):
+    # the flags of the JAX package that the port does not run yet
+    out, err = io.StringIO(), io.StringIO()
+    with pytest.raises(SystemExit) as e:
+        tcli.parse_args([flag, "a.jpg", "b.png"], stdout=out, stderr=err)
+    assert e.value.code == 2 and "not supported by the PyTorch port" in err.getvalue()
+
+
+def test_cli_directory_source_needs_an_output_directory(workdir, tmp_path, capsys):
+    d, ckpt, src = workdir
+    srcdir = tmp_path / "in"
+    srcdir.mkdir()
+    (srcdir / "a.jpg").write_bytes(open(src, "rb").read())
+    assert tcli.main([f"--checkpoint-path={ckpt}", "--focal-length=28", str(srcdir),
+                      str(tmp_path / "not_a_dir.png")], device="cpu") == 1
+    assert "must be an existing directory" in capsys.readouterr().out
 
 
 def test_cli_help_and_unknown_flag():
@@ -190,8 +210,10 @@ def test_port_imports_no_jax():
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
-            "for name in ('cli', 'output.png', 'errors', 'progress', 'io.image',\n"
-            "             'ops.viridis_data', 'native.lanczos', 'native.pngwriter'):\n"
+            "for name in ('cli', 'api', 'timings', 'output.png', 'output.mesh',\n"
+            "             'output.writers', 'output.rust_format', 'errors', 'progress',\n"
+            "             'io.image', 'ops.viridis_data', 'native.lanczos',\n"
+            "             'native.pngwriter', 'native.meshwriter'):\n"
             "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"

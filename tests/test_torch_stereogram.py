@@ -167,6 +167,7 @@ def test_split_png_bytes_match_jax_and_device_resolved(tmp_path, oh, ow, amplitu
     # exact bytes: the same encoder, stripes and profile on the same pixels
     depth = torch.from_numpy(_grid((32, 48), ow))
     pw, shift, noise = tst.synthesize_stereogram_split(depth, oh, ow, amplitude, seed=3)
+    shift = shift.numpy()
     assert shift.shape == (oh, ow) and noise.shape == (oh, pw, 3)
     t, j, r = (str(tmp_path / f"{n}.png") for n in ("t", "j", "r"))
     tpng.save_stereogram_split(shift, noise, t, pw)
@@ -185,7 +186,7 @@ def test_png_routes_and_seed_determinism(tmp_path, amplitude):
     assert (tst._split_geometry(600, amplitude) is None) == (amplitude == 0.45)
     paths = [str(tmp_path / f"s{i}.png") for i in range(3)]
     for path, seed in zip(paths, (7, 7, 8)):
-        dm.output_image(path, STEREO, amplitude=amplitude, seed=seed)
+        dm.output_image(path, "", STEREO, amplitude=amplitude, seed=seed)
     a, b, c = (open(p, "rb").read() for p in paths)
     assert a == b and a != c
     np.testing.assert_array_equal(_decode(paths[0]),
@@ -203,7 +204,7 @@ def test_jpg_route_writes_through_pil(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tpng, "pil_save", spy)
     out = str(tmp_path / "s.jpg")
-    dm.output_image(out, STEREO, resize_scale=0.5, seed=1)
+    dm.output_image(out, "", STEREO, resize_scale=0.5, seed=1)
     assert calls == [out]
     with Image.open(out) as im:
         assert im.format == "JPEG" and im.size == (48, 32)
