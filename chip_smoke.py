@@ -25,7 +25,11 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    DEPTH_PRO forward in bf16 and in f32, and linker_scan (bit-exact); and
    the shapes of a batch of four photos (attention at B = 140 bf16 and the
    FOV's B = 4 f32, conv3x3 at N = 4; under --dtype f32 attention at B =
-   140 and the N = 4 hot conv), with one conv past 2^31 elements;
+   140 and the N = 4 hot conv), with one conv past 2^31 elements; and the
+   f16 builds (``--dtype f16``): attention_qkv at the patch and image ViT
+   shapes, masked, and at TINY's head size 8, attention_flash at the patch
+   ViT's shape, conv3x3 at every conv shape of the forward (the bound at
+   the f16 dense peak, 989 TFLOP/s; SDPA and ``F.conv2d`` in f16);
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
    photo at full DEPTH_PRO width (seeded random weights, bf16): launch
    counts, conv3x3's launches by shape (which weight phase 3's times into
@@ -56,12 +60,28 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    the PNGs within a mean of one count of the --batch-size=1 run's; then photos per second for the
    directory at --batch-size=4 against 1, warm, in turns. The CLI's
    checkpoint reader is answered with the phase-4 weights: the repository
-   holds no trained checkpoint.
+   holds no trained checkpoint;
+10-12. the dtype policies ``--dtype=f16``, ``mixed`` and ``int8`` through
+   ``cli.main([f"--dtype={policy}", photo, out])`` on the phase-4 photo (as
+   a PNG) at full DEPTH_PRO width, each run twice: the checkpoint reader
+   (``pt.convert.read_checkpoint``) returns the phase-4 seed's canonical
+   f32 tree, so the loader's policy conversion (f16 rounding, int8
+   quantization on the card, the mixed layout) runs as it would from a
+   .pt. Launches: attention 72 (48 in the ViT's dtype, 24 f32 in the FOV),
+   conv3x3 24 in f16, f32 and bf16 respectively, linker_scan 0; the weight
+   bytes and the peak device memory; the inverse depth's gap to phase 5's
+   f32 run on the same photo and weights, mixed's below bf16's (phase 4);
+13. each policy at MID on the card (kernels, the int8 products by cuBLAS)
+   against the CPU (plain versions) from the same canonical weights: the
+   leaves placed on the card equal those placed on the CPU bit for bit
+   (int8 codes and scales included), canonical inverse depth and FOV
+   within 5e-3 of max |ref| (f16) and 2e-2 (mixed, int8).
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the seven paths (depth-map PNG, the same in f32, compact
-PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4 directory),
+count on each of the ten paths (depth-map PNG, the same in f32, compact
+PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4 directory,
+the depth-map PNG under --dtype f16, mixed and int8),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
@@ -95,6 +115,13 @@ F32_RTOL, F32_ATOL = 1e-4, 1e-5
 # round the conv before the residual adds and the probabilities before
 # P V), so the bound is relative to the output's scale.
 BF16_REL = 2e-2
+# f16: the same, with three more mantissa bits than bf16
+F16_REL = 5e-3
+# a policy's forward at MID, card against CPU (canonical inverse depth and
+# FOV, relative to the CPU's max): f16 as its kernels; mixed and int8 carry
+# bf16 ViT activations, and an int8 activation code flips by one wherever
+# two f32 sums round apart
+POLICY_MID_REL = {"f16": F16_REL, "mixed": BF16_REL, "int8": BF16_REL}
 # a directory's depth-map PNGs at --batch-size=4 against 1: the mean
 # difference in u8 counts per channel (bf16 rounding moves the viridis
 # index of a pixel by a step or two)
@@ -109,7 +136,8 @@ STEREO_SEED = 7
 # the H100 SXM's dense peaks (NVIDIA data sheet, 700 W): bound_ms is the
 # larger of the bytes a call must move and the FLOPs it must do over these
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}  # tensor cores; f32 CUDA cores
+PEAK_FLOPS_S = {"bf16": 989e12, "f16": 989e12, "tf32": 495e12,
+                "f32": 67e12}  # tensor cores; f32 CUDA cores
 
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
@@ -128,6 +156,10 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (140, 577, 16, 64, "bf16", None),  # patch ViT of a batch of four photos
     (4, 577, 16, 64, "f32", None),     # FOV ViT of a batch of four photos
     (140, 577, 16, 64, "f32", None),   # patch ViT of a batch of four under --dtype f32
+    (35, 577, 16, 64, "f16", None),    # patch ViT under --dtype f16
+    (1, 577, 16, 64, "f16", None),     # image ViT under --dtype f16
+    (1, 577, 16, 64, "f16", 500),      # the same, keys past n_valid masked
+    (3, 70, 2, 8, "f16", None),        # TINY heads (CUDA cores), ragged N
 ]
 FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffer)
     (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
@@ -136,6 +168,7 @@ FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffe
     (2, 4, 130, 32, "bf16", 100, False),    # MID heads, ragged N, masked
     (2, 16, 1025, 64, "bf16", 1000, False),  # K and V streamed, masked
     (3, 2, 70, 8, "f32", None, False),      # TINY heads, ragged N
+    (35, 16, 577, 64, "f16", None, True),   # the patch ViT's shape under --dtype f16
 ]
 LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
     (3024, 4032, 1 / 16),   # 12 MP photo, default amplitude: pw 504, win 253
@@ -150,9 +183,9 @@ LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
 ]
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
-# residual-unit convs, the head's 2) in bf16 and in f32 (--dtype f32), then
-# shapes off the main path. The launches column is what the depth-map run
-# of that dtype must show, shape by shape (conv3x3.launches_by_shape); the
+# residual-unit convs, the head's 2) in bf16, in f32 (--dtype f32 and the
+# mixed policy) and in f16 (--dtype f16), then shapes off the main path.
+# The launches column is what the depth-map run of that dtype must show, shape by shape (conv3x3.launches_by_shape); the
 # per-forward sums weight by that count.
 _FORWARD_CONVS = [  # (H, W, Cin, Cout, relu_in, n_skips, bias, launches)
     (768, 768, 256, 256, True, 2, True, 1),    # fused RCU, the hot shape
@@ -177,7 +210,7 @@ _FORWARD_CONVS = [  # (H, W, Cin, Cout, relu_in, n_skips, bias, launches)
     (48, 48, 256, 256, True, 0, True, 1),
 ]
 CONV_SHAPES = [(1, H, W, cin, cout, dt, relu_in, n_skips, bias, launches)
-               for dt in ("bf16", "f32")
+               for dt in ("bf16", "f32", "f16")
                for H, W, cin, cout, relu_in, n_skips, bias, launches in _FORWARD_CONVS] + [
     (2, 7, 9, 8, 4, "f32", True, 1, True, None),          # TINY channels, odd sizes
     (2, 7, 9, 12, 5, "bf16", True, 2, True, None),        # odd channels: padded to 8
@@ -203,13 +236,15 @@ def counted_run(fn):
     """Run fn with every launch counter set to 0 just before it; return its
     result, the counts just after ({kernel: launches}) and conv3x3's
     launches by shape ({(B, H, W, Cin, Cout, dtype, relu_in, residuals,
-    bias): launches})."""
+    bias): launches}). attention_qkv's launches by dtype stay on the
+    wrapper (``launches_by_dtype``), set to 0 here as well."""
     import torch
 
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     wrappers["conv3x3"].launches_by_shape.clear()
+    wrappers["attention_qkv"].launches_by_dtype.clear()
     result = fn()
     torch.cuda.synchronize()
     return (result, {name: w.launches for name, w in wrappers.items()},
@@ -260,7 +295,7 @@ def compare(got, ref, dtype) -> dict:
         if dtype == torch.float32:
             ok = ok and bool((err <= F32_ATOL + F32_RTOL * r.abs()).all())
     if dtype != torch.float32:
-        ok = ok and max_abs <= BF16_REL * max_ref
+        ok = ok and max_abs <= (F16_REL if dtype == torch.float16 else BF16_REL) * max_ref
     return {"max_abs_err": max_abs, "max_rel_err": max_abs / max(max_ref, 1e-30),
             "max_ref": max_ref, "ok": ok}
 
@@ -292,7 +327,7 @@ _NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel", "conv3x3_split_we
                 "conv3x3_splitk_reduce", "attention_wgmma_kernel", "attention_tf32_kernel",
                 "split_tf32_kernel", "linker_scan_kernel")
 # template arguments as the mangled names spell them
-_MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|f"
+_MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|6__half|f"
 
 
 def _ptxas_lines(report: str) -> list:
@@ -309,7 +344,7 @@ def _ptxas_lines(report: str) -> list:
             name = None
             if base:
                 rest = mangled.split(base, 1)[1]
-                args = [m.group(1) or {"f": "float"}.get(m.group(0), "bf16")
+                args = [m.group(1) or {"f": "float", "6__half": "f16"}.get(m.group(0), "bf16")
                         for m in re.finditer(_MANGLED_ARGS, rest.split("EEv", 1)[0])
                         ] if rest.startswith("I") else []
                 name = base + (f"<{', '.join(args)}>" if args else "")
@@ -376,7 +411,7 @@ def phase_kernels(dev) -> dict:
     from matrix_eyes_tpu_torch.ops.stereogram import _max_shift, stereogram_geometry
     from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan, linker_scan_plain
 
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
     gen = torch.Generator(device=dev).manual_seed(1234)
     hot = {}
     failures = []
@@ -385,15 +420,15 @@ def phase_kernels(dev) -> dict:
         """bound_ms and bound_by into res; for f32 the least time at f32
         accuracy on the tensor cores (three TF32 products) and, beside it,
         one f32 product on the CUDA cores (bound_cuda_core_ms)."""
-        if dt == "bf16":
-            res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, "bf16")
+        if dt != "f32":
+            res["bound_ms"], res["bound_by"] = bound_ms(flops, nbytes, dt)
         else:
             res["bound_ms"], res["bound_by"] = bound_ms(3 * flops, nbytes, "tf32")
             res["bound_cuda_core_ms"] = bound_ms(flops, nbytes, "f32")[0]
 
     def attention_bound(res, B, N, H, D, dt, n_valid):
         nv = N if n_valid is None else n_valid
-        e = 2 if dt == "bf16" else 4
+        e = 4 if dt == "f32" else 2
         # q and o over N rows, k and v over the n_valid keys that count
         put_bound(res, 4.0 * B * H * N * nv * D, (2 * N + 2 * nv) * B * H * D * e, dt)
 
@@ -430,6 +465,8 @@ def phase_kernels(dev) -> dict:
             hot["attention_qkv_batch4_fov_f32"] = res
         if (B, N, dt, n_valid) == (140, 577, "f32", None):
             hot["attention_qkv_batch4_f32"] = res
+        if (B, N, dt, n_valid) == (35, 577, "f16", None):
+            hot["attention_qkv_f16"] = res
         print(f"[3] attention {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -455,8 +492,8 @@ def phase_kernels(dev) -> dict:
                                     n_valid, reps)
         attention_bound(res, B, N, H, D, dt, n_valid)
         res["shape"] = f"B={B} H={H} N={N} D={D} {dt} n_valid={n_valid} views={views}"
-        if views and dt == "bf16":
-            hot["attention_flash"] = res
+        if views and dt != "f32":
+            hot["attention_flash" + ("_f16" if dt == "f16" else "")] = res
         print(f"[3] attention_flash {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -507,7 +544,7 @@ def phase_kernels(dev) -> dict:
         xc = x.permute(0, 3, 1, 2)  # NHWC storage: the channels-last view
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         res["library_ms"] = time_ms(lambda: F.conv2d(xc, wc, b, padding=1), reps)
-        e = 2 if dt == "bf16" else 4
+        e = 4 if dt == "f32" else 2
         m = B * H * W
         put_bound(res, 2.0 * m * 9 * cin * cout,
                   (m * cin + 9 * cin * cout + (cout if has_bias else 0) + (1 + n_skips) * m * cout)
@@ -516,7 +553,7 @@ def phase_kernels(dev) -> dict:
                         f"bias={has_bias}")
         res["launches_per_forward"] = launches
         if (B, H, cin, cout, n_skips) == (1, 768, 256, 256, 2):
-            hot["conv3x3" if dt == "bf16" else "conv3x3_f32"] = res
+            hot[{"bf16": "conv3x3", "f32": "conv3x3_f32", "f16": "conv3x3_f16"}[dt]] = res
         if (B, H) == (4, 768):
             hot["conv3x3_batch4" if dt == "bf16" else "conv3x3_batch4_f32"] = res
         if B == 15:
@@ -574,7 +611,8 @@ def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
     """``pipeline.extract_depth`` to a depth-map PNG, twice, at DEPTH_PRO
     with params of dtype: launch counts and conv3x3's launches by shape of
     each run (equal between runs, every conv in dtype), a 4032x3024 PNG, a
-    finite inverse depth and FOV. Returns the first run's counts and shapes."""
+    finite inverse depth and FOV. Returns the first run's counts and shapes,
+    and the inverse depth."""
     import torch
 
     from matrix_eyes_tpu_torch import pipeline
@@ -615,7 +653,7 @@ def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
     print(f"[{phase}] inverse depth {tuple(inv.shape)} finite, range [{inv.min().item():.4g}, "
           f"{inv.max().item():.4g}], fov {fov_deg.item():.4f} deg; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts[0], conv_shapes[0]
+    return counts[0], conv_shapes[0], inv
 
 
 def phase_main_path(dev) -> tuple:
@@ -637,14 +675,14 @@ def phase_main_path(dev) -> tuple:
     rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
     rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
     src = SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
-    counts, conv_shapes = depth_map_runs(dev, params, src, dtype, 4, "depthmap")
-    return counts, conv_shapes, params, src
+    counts, conv_shapes, inv = depth_map_runs(dev, params, src, dtype, 4, "depthmap")
+    return counts, conv_shapes, inv, params, src
 
 
 def phase_f32_path(dev, src) -> tuple:
     """The depth-map path under --dtype f32: f32 weights from phase 4's
-    seed, the phase-4 photo. Returns the first run's counts and conv3x3's
-    launches by shape."""
+    seed, the phase-4 photo. Returns the first run's counts, conv3x3's
+    launches by shape and the inverse depth."""
     import torch
 
     from matrix_eyes_tpu_torch.config import DEPTH_PRO
@@ -862,8 +900,32 @@ def phase_mesh(dev, params, src, photo: str) -> dict:
 
 
 def phase_batch(dev, params, photos: list) -> dict:
-    """The batched path through the CLI and the library session; returns
-    the batch-4 directory run's launch counts."""
+    """The batched path through the CLI and the library session, the CLI's
+    checkpoint reader answered with the phase-4 weights; returns the batch-4
+    directory run's launch counts."""
+    import torch
+
+    from matrix_eyes_tpu_torch import api
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.pt import convert
+
+    def phase4_weights(path, dtype, device, parts=convert.PARTS, cfg=None,
+                       quantize_int8=False, mixed_bf16=False):
+        require(dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+                and not quantize_int8 and not mixed_bf16,
+                f"checkpoint asked for {dtype} on {device} (int8 {quantize_int8}, mixed "
+                f"{mixed_bf16})")
+        return DEPTH_PRO, {part: params[part] for part in parts}
+
+    real_load = convert.load_checkpoint
+    convert.load_checkpoint = api.load_checkpoint = phase4_weights
+    try:
+        return _batch_runs(dev, params, photos)
+    finally:
+        convert.load_checkpoint = api.load_checkpoint = real_load
+
+
+def _batch_runs(dev, params, photos: list) -> dict:
     import numpy as np
     import torch
     from PIL import Image
@@ -872,16 +934,8 @@ def phase_batch(dev, params, photos: list) -> dict:
     from matrix_eyes_tpu_torch.config import DEPTH_PRO
     from matrix_eyes_tpu_torch.io.image import load_source_image
     from matrix_eyes_tpu_torch.models import depth_pro
-    from matrix_eyes_tpu_torch.pt import convert
 
     cfg = DEPTH_PRO
-
-    def phase4_weights(path, dtype, device, parts=convert.PARTS, cfg=None):
-        require(dtype == torch.bfloat16 and torch.device(device).type == "cuda",
-                f"checkpoint asked for {dtype} on {device}")
-        return DEPTH_PRO, {part: params[part] for part in parts}
-
-    convert.load_checkpoint = api.load_checkpoint = phase4_weights
     in_dir = os.path.dirname(photos[0])
     outs = {}
     for bs in (4, 1):
@@ -971,6 +1025,161 @@ def phase_batch(dev, params, photos: list) -> dict:
     return counts
 
 
+# per policy: (the ViT's attention dtype, conv3x3's dtype)
+POLICY_DTYPES = {"f16": ("float16", "float16"), "mixed": ("bfloat16", "float32"),
+                 "int8": ("bfloat16", "bfloat16")}
+
+
+def _tree_bytes(tree) -> int:
+    from matrix_eyes_tpu_torch.models.spec import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _gap(a, ref) -> float:
+    """max |a - ref| over max |ref|"""
+    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str, ref_inv,
+                 bf16_gap: float, conv_rows: dict) -> tuple:
+    """``cli.main([f"--dtype={policy}", photo, out])`` twice at full
+    DEPTH_PRO width, the checkpoint reader answered with the canonical f32
+    tree of phase 4's seed, so that the loader's policy conversion runs.
+    Returns the first run's counts and the per-forward conv3x3 sums."""
+    import torch
+
+    from matrix_eyes_tpu_torch import cli, pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig, parse_dtype_policy
+    from matrix_eyes_tpu_torch.models import depth_pro
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+    from matrix_eyes_tpu_torch.pt import convert
+
+    cfg = DEPTH_PRO
+    vit_dtype, conv_dtype = (getattr(torch, n) for n in POLICY_DTYPES[policy])
+    out = os.path.join(OUT_DIR, f"chip_smoke_{policy}.png")
+    loaded = {}
+    real_read, real_load = convert.read_checkpoint, convert.load_checkpoint
+
+    def read(path, parts=convert.PARTS, cfg=None):
+        return DEPTH_PRO, {part: canonical[part] for part in parts}
+
+    def load(*args, **kwargs):
+        loaded["cfg"], loaded["params"] = real_load(*args, **kwargs)
+        return loaded["cfg"], loaded["params"]
+
+    convert.read_checkpoint, convert.load_checkpoint = read, load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    walls, counts, by_dtype, shapes = [], [], [], []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rc, c, sh = counted_run(lambda: cli.main([f"--dtype={policy}", photo, out]))
+            walls.append(time.perf_counter() - t0)
+            require(rc == 0, f"cli.main --dtype={policy} exited {rc}")
+            counts.append(c)
+            by_dtype.append(dict(attention_qkv.launches_by_dtype))
+            shapes.append(sh)
+    finally:
+        convert.read_checkpoint, convert.load_checkpoint = real_read, real_load
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{phase}] cli --dtype={policy} wall s: first {walls[0]:.3f} (the policy's "
+          f"conversion included), second {walls[1]:.3f}; launches per run: {counts}; "
+          f"attention_qkv by dtype: {by_dtype}")
+    expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
+              "attention_flash": 0}
+    want_dtypes = {vit_dtype: 2 * cfg.depth, torch.float32: cfg.depth}
+    require(all(c == expect for c in counts), f"--dtype={policy}: launch counts {counts}, "
+            f"expected {expect} per run")
+    require(all(d == want_dtypes for d in by_dtype),
+            f"--dtype={policy}: attention_qkv by dtype {by_dtype}, expected {want_dtypes}")
+    require(shapes[0] == shapes[1], f"--dtype={policy}: conv3x3 shapes differ between runs")
+    require(all(k[5] == conv_dtype for k in shapes[0]),
+            f"--dtype={policy}: conv3x3 launches of another dtype than {conv_dtype}: "
+            f"{list(shapes[0])}")
+    per_forward = conv_per_forward(conv_rows, shapes[0], conv_dtype, phase)
+    size = _png_size(out)
+    require(size == (4032, 3024), f"--dtype={policy}: depth map PNG is {size}")
+    params = loaded["params"]
+    dtype, q8, mixed = parse_dtype_policy(policy)
+    runtime = RuntimeConfig(dtype, device=dev, quantize_int8=q8, mixed_bf16=mixed)
+    img = pipeline.preprocess_image(src.rgb, cfg.img_size, runtime.image_dtype(), dev)
+    inv, fov_deg = depth_pro.forward_with_fov(cfg, params, img)
+    require(bool(torch.isfinite(inv).all()) and bool(torch.isfinite(fov_deg).all()),
+            f"--dtype={policy}: non-finite inverse depth or FOV")
+    gap = _gap(inv, ref_inv)
+    weights = _tree_bytes(params)
+    print(f"[{phase}] --dtype={policy}: {out} {size[0]}x{size[1]}; weights {weights} bytes "
+          f"({weights / 2**30:.3f} GiB); peak device memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - before) / 2**30:.2f} GiB above the {before / 2**30:.2f} GiB held before "
+          f"the runs (the canonical f32 tree among them); fov {fov_deg.item():.4f} deg; "
+          f"inverse depth gap to the --dtype f32 run (max |diff| / max |f32|) {gap:.3e}, "
+          f"bf16's {bf16_gap:.3e}")
+    if policy == "mixed":
+        require(gap < bf16_gap, f"mixed's gap to f32 {gap:.3e} is not below bf16's "
+                f"{bf16_gap:.3e}")
+    loaded.clear()
+    del params
+    torch.cuda.empty_cache()
+    return counts[0], per_forward
+
+
+def phase_policies_mid(dev) -> None:
+    """Each policy at MID: the card (kernels, cuBLAS int8 products) against
+    the CPU (plain versions) from the same canonical f32 weights."""
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch.config import MID, RuntimeConfig, parse_dtype_policy
+    from matrix_eyes_tpu_torch.models import depth_pro
+    from matrix_eyes_tpu_torch.models import fov as fov_mod
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.models.spec import tree_leaves, tree_map
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    def _at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    cfg = MID
+    canonical = init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32)
+    img = np.random.RandomState(5).uniform(-1, 1, (1, cfg.img_size, cfg.img_size, 3))
+    img = torch.from_numpy(img.astype(np.float32))
+    for policy in ("f16", "mixed", "int8"):
+        dtype, q8, mixed = parse_dtype_policy(policy)
+        runtime = RuntimeConfig(dtype, device="cpu", quantize_int8=q8, mixed_bf16=mixed)
+        outs = {}
+        for where in ("cpu", dev):
+            params = place_params(canonical, where, dtype, quantize_int8=q8, mixed_bf16=mixed)
+            x = img.to(where, runtime.image_dtype())
+            with torch.no_grad():
+                can, lowres = depth_pro.canonical_inverse_depth(cfg, params, x)
+                fov_deg = fov_mod.forward(cfg, params["fov"], x, lowres)
+            outs[str(where)] = (params, can.float().cpu(), fov_deg.float().cpu())
+        (cpu_p, can_c, fov_c), (gpu_p, can_g, fov_g) = outs["cpu"], outs[str(dev)]
+        differ = []
+
+        def check(path, a):
+            b = _at(gpu_p, path)
+            if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
+                differ.append(".".join(map(str, path)))
+
+        tree_map(check, cpu_p)
+        same_leaves = not differ and len(tree_leaves(cpu_p)) == len(tree_leaves(gpu_p))
+        rel = POLICY_MID_REL[policy]
+        can_err, fov_err = _gap(can_g, can_c), _gap(fov_g, fov_c)
+        ok = (same_leaves and bool(torch.isfinite(can_g).all()) and can_err <= rel
+              and fov_err <= rel)
+        print(f"[13] MID --dtype={policy} card vs CPU: leaves placed on the card equal the "
+              f"CPU's: {same_leaves} {differ[:6]}; canonical inverse depth "
+              f"max_rel={can_err:.3e}, fov {fov_g.item():.6f} vs {fov_c.item():.6f} deg (rel "
+              f"{fov_err:.3e}); gate {rel:g} {'ok' if ok else 'FAIL'}")
+        require(ok, f"--dtype={policy} at MID: the card disagrees with the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -982,7 +1191,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from matrix_eyes_tpu_torch.config import configure_precision
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, configure_precision
+    from matrix_eyes_tpu_torch.models.init import init_params
 
     configure_precision()
     dev = torch.device("cuda", 0)
@@ -990,16 +1200,29 @@ def main() -> int:
     phase_build()
     hot, conv_rows = phase_kernels(dev)
     by_path = {}
-    by_path["depthmap_png"], conv_shapes, params, src = phase_main_path(dev)
+    by_path["depthmap_png"], conv_shapes, inv_bf16, params, src = phase_main_path(dev)
     hot["conv3x3"]["per_forward"] = conv_per_forward(conv_rows, conv_shapes, torch.bfloat16, 4)
-    by_path["depthmap_png_f32"], conv_shapes = phase_f32_path(dev, src)
+    by_path["depthmap_png_f32"], conv_shapes, inv_f32 = phase_f32_path(dev, src)
     hot["conv3x3"]["per_forward_f32"] = conv_per_forward(conv_rows, conv_shapes, torch.float32,
                                                          5)
+    bf16_gap = _gap(inv_bf16, inv_f32)
     phase_end_to_end(dev)
     by_path.update(phase_stereogram(dev, params, src))
     photos = write_photos(src)
     by_path["mesh_obj"] = phase_mesh(dev, params, src, photos[0])
     by_path["batch4"] = phase_batch(dev, params, photos)
+    del params
+    torch.cuda.empty_cache()
+    canonical = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev,
+                            torch.float32)  # phase 4's seed, before its rounding to bf16
+    for phase, policy in ((10, "f16"), (11, "mixed"), (12, "int8")):
+        by_path[f"depthmap_png_{policy}"], per_forward = phase_policy(
+            dev, policy, phase, canonical, src, photos[0], inv_f32, bf16_gap, conv_rows)
+        if policy == "f16":
+            hot["conv3x3_f16"]["per_forward"] = per_forward
+    del canonical
+    torch.cuda.empty_cache()
+    phase_policies_mid(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -1029,6 +1252,11 @@ def main() -> int:
                 "bound_cuda_core_ms")}
         row_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")
+        if name != "linker_scan":  # the f16 build at the hot shape (--dtype f16)
+            f16 = hot[f"{name}_f16"]
+            kernels[-1]["f16"] = {k: f16[k] for k in row_keys}
+            if "per_forward" in f16:
+                kernels[-1]["f16"]["per_forward"] = f16["per_forward"]
         if name == "attention_qkv":  # the FOV ViT's f32 call, 24 launches per forward
             fov = hot["attention_qkv_fov_f32"]
             kernels[-1]["fov_f32"] = {k: fov[k] for k in row_keys + ("bound_cuda_core_ms",)}

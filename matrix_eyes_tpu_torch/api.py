@@ -24,7 +24,7 @@ from matrix_eyes_tpu_torch.config import (
     ModelConfig,
     RuntimeConfig,
     configure_precision,
-    parse_dtype,
+    parse_dtype_policy,
 )
 from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.models import depth_pro
@@ -36,21 +36,25 @@ Image = Union[str, np.ndarray, SourceImage]
 
 
 class MatrixEyes:
-    """A loaded model. ``dtype``: "f32"/"bf16" (as the CLI's ``--dtype``)
-    or a torch dtype, None for bf16 on the card and f32 on the CPU;
+    """A loaded model. ``dtype``: a policy of the CLI's ``--dtype`` ("f32",
+    "bf16", "f16", "int8", "mixed") or a torch dtype, None for bf16 on the
+    card and f32 on the CPU;
     ``seed``: stereogram noise; ``cfg``: the architecture, inferred from
     the checkpoint when None; ``device``: None for the card, "cpu" for the
     CPU."""
 
     def __init__(self, checkpoint_path: str, dtype: Union[str, torch.dtype, None] = None,
                  seed: int = 0, cfg: Optional[ModelConfig] = None, device=None):
+        quantize_int8 = mixed_bf16 = False
         if isinstance(dtype, str):
-            dtype = parse_dtype(dtype)
-        self.runtime = RuntimeConfig(dtype=dtype, device=device, seed=seed)
+            dtype, quantize_int8, mixed_bf16 = parse_dtype_policy(dtype)
+        self.runtime = RuntimeConfig(dtype=dtype, device=device, seed=seed,
+                                     quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
         configure_precision()
-        self.cfg, self.params = load_checkpoint(checkpoint_path,
-                                                dtype=self.runtime.resolved_dtype(),
-                                                device=self.runtime.resolved_device(), cfg=cfg)
+        self.cfg, self.params = load_checkpoint(
+            checkpoint_path, dtype=self.runtime.resolved_dtype(),
+            device=self.runtime.resolved_device(), cfg=cfg, quantize_int8=quantize_int8,
+            mixed_bf16=mixed_bf16)
 
     # -- depth -------------------------------------------------------------
 
@@ -68,7 +72,7 @@ class MatrixEyes:
                            focal_length_35mm=focal_length_35mm)
 
     def _preprocess(self, src: SourceImage) -> torch.Tensor:
-        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.resolved_dtype(),
+        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.image_dtype(),
                                 self.runtime.resolved_device())
 
     def depth_map(self, image: Image, focal_length_35mm: Optional[float] = None) -> DepthMap:

@@ -9,9 +9,10 @@
 
 The port writes a viridis depth map, an autostereogram or an OBJ/PLY mesh,
 for one photo or (a directory source) for every photo of a directory,
-``--batch-size`` photos per forward. Flags of the JAX package that the port
-does not run yet (``--devices``, the f16/int8/mixed dtypes, ...) exit 2
-with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
+``--batch-size`` photos per forward, under every dtype policy of the JAX
+package (``--dtype=f32|bf16|f16|int8|mixed``). Flags of the JAX package
+that the port does not run yet (``--devices``, ``--convert-checkpoints``,
+...) exit 2 with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
 to stderr on exit.
 """
 
@@ -38,7 +39,7 @@ Options:
       --resize-scale=<SCALE>              Custom scale for stereogram output [default: 1.0]
       --stereo-amplitude=<AMPLITUDE>      Custom scale for stereogram output [default: 0.0625]
       --mesh=<MESH>                       Mesh options [default: vertex-colors] [possible values: plain, vertex-colors, texture-coordinates]
-      --dtype=<DTYPE>                     Compute/parameter dtype [default: bf16 on CUDA, f32 elsewhere] [possible values: f32, bf16]
+      --dtype=<DTYPE>                     Compute/parameter dtype [default: bf16 on CUDA, f32 elsewhere] [possible values: f32, bf16, f16, int8, mixed]
       --seed=<SEED>                       Stereogram noise seed [default: 0]
       --batch-size=<N>                    Images per forward in directory mode [default: 1]
       --help                              Print help"""
@@ -115,9 +116,9 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
             elif name == "--checkpoint-path":
                 args.checkpoint_path = value
             elif name == "--dtype":
-                from matrix_eyes_tpu_torch.config import parse_dtype
+                from matrix_eyes_tpu_torch.config import parse_dtype_policy
 
-                parse_value(name, value, parse_dtype)
+                parse_value(name, value, parse_dtype_policy)
                 args.dtype = value
             else:
                 print(f"Unsupported argument {arg}", file=stderr)
@@ -165,15 +166,17 @@ def run(args: Args, progress=None, device=None) -> None:
     photo: ``--batch-size`` per forward, or one at a time with the next
     decode prefetched; a failed decode or write skips that photo, a model
     failure ends the run."""
-    from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype
+    from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype_policy
     from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
     from matrix_eyes_tpu_torch.io.image import load_source_image, probe_focal_length_35mm
     from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat, VertexMode
     from matrix_eyes_tpu_torch.pipeline import extract_depth, extract_depth_batch
     from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
 
-    runtime = RuntimeConfig(dtype=parse_dtype(args.dtype) if args.dtype else None,
-                            device=device, seed=args.seed)
+    dtype, quantize_int8, mixed_bf16 = (parse_dtype_policy(args.dtype) if args.dtype
+                                        else (None, False, False))
+    runtime = RuntimeConfig(dtype=dtype, device=device, seed=args.seed,
+                            quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
     batch = os.path.isdir(args.img_src)
     if batch:
         jobs = [(s, o, None) for s, o in _jobs(args)]
@@ -190,7 +193,8 @@ def run(args: Args, progress=None, device=None) -> None:
     if progress is not None:
         progress.update_message("reading checkpoint")
     cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
-                                  device=runtime.resolved_device(), parts=parts)
+                                  device=runtime.resolved_device(), parts=parts,
+                                  quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
     options = dict(focal_length_35mm=args.focal_length,
                    image_format=ImageOutputFormat(args.output_format),
                    vertex_mode=VertexMode(args.vertex_mode), resize_scale=args.resize_scale,

@@ -2,9 +2,11 @@
 
 A copy of ``matrix_eyes_tpu/config.py``: ``ModelConfig`` with the
 ``DEPTH_PRO``, ``MID`` and ``TINY`` configurations, and a ``RuntimeConfig``
-for the device and the f32 and bf16 float policies. The port runs on the
-CUDA card unless the caller asks for the CPU (``device="cpu"``); the
-default dtype is bf16 on CUDA and f32 on the CPU.
+for the device and the dtype policies of ``--dtype``: the compute dtypes
+f32, bf16 and f16, and the weight policies int8 (``quantize_int8``) and
+mixed (``mixed_bf16``), both with a bf16 ViT. The port runs on the CUDA
+card unless the caller asks for the CPU (``device="cpu"``); the default
+dtype is bf16 on CUDA and f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -96,6 +98,8 @@ _DTYPE_NAMES = {
     "float32": torch.float32,
     "bf16": torch.bfloat16,
     "bfloat16": torch.bfloat16,
+    "f16": torch.float16,
+    "float16": torch.float16,
 }
 
 
@@ -103,12 +107,31 @@ def parse_dtype(name: str) -> torch.dtype:
     try:
         return _DTYPE_NAMES[name.lower()]
     except KeyError:
-        raise ValueError(f"Unsupported dtype {name!r}; expected one of {sorted(_DTYPE_NAMES)}")
+        raise ValueError(f"Unsupported dtype {name!r}; expected one of "
+                         f"{sorted(_DTYPE_NAMES) + ['int8', 'mixed']}")
+
+
+def parse_dtype_policy(name: str) -> Tuple[torch.dtype, bool, bool]:
+    """The CLI's ``--dtype`` -> (compute dtype, quantize_int8, mixed_bf16).
+
+    ``int8`` and ``mixed`` are weight policies, not compute dtypes: the ViT
+    runs bf16 under both. ``int8`` stores the ViT block matmul weights as
+    int8 codes with per-channel f32 scales (``ops/quant.py``); ``mixed``
+    keeps only those weights bf16 and everything else f32, with true-f32
+    arithmetic (``ops/mixed.py``). Every other name maps through
+    :func:`parse_dtype`."""
+    if name.lower() == "int8":
+        return torch.bfloat16, True, False
+    if name.lower() == "mixed":
+        return torch.bfloat16, False, True
+    return parse_dtype(name), False, False
 
 
 def configure_precision() -> None:
     """Make f32 mean f32 on the card: cuBLAS matmuls and cuDNN convs both
-    refuse TF32 (cuDNN allows it by default)."""
+    refuse TF32 (cuDNN allows it by default). This keeps the f32 GEMMs of
+    ``--dtype f32`` and of the mixed policy's decoder, head and FOV true
+    f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -123,11 +146,27 @@ class RuntimeConfig:
     picks bf16 on CUDA and f32 on the CPU. device: None means the CUDA card
     (and raises ``NoCudaDevice`` without one); the CPU runs only when asked
     for ("cpu"). seed: stereogram noise seed (a CPU ``torch.Generator``, so
-    a seed gives the same image on every device; not the JAX package's bits)."""
+    a seed gives the same image on every device; not the JAX package's bits).
+    quantize_int8: ``--dtype int8``, int8 ViT block matmul weights
+    (``ops/quant.py``); needs the bf16 compute dtype. mixed_bf16:
+    ``--dtype mixed``, bf16 ViT block matmul weights and everything else
+    f32 (``ops/mixed.py``); needs the bf16 compute dtype, excludes int8."""
 
     dtype: Optional[torch.dtype] = None
     device: Optional[torch.device] = None
     seed: int = 0
+    quantize_int8: bool = False
+    mixed_bf16: bool = False
+
+    def __post_init__(self):
+        if self.quantize_int8 and self.dtype is not None and self.dtype != torch.bfloat16:
+            raise ValueError(f"quantize_int8 requires the bf16 compute dtype (got {self.dtype})")
+        if self.mixed_bf16:
+            if self.quantize_int8:
+                raise ValueError("mixed_bf16 and quantize_int8 are mutually exclusive "
+                                 "weight-precision policies")
+            if self.dtype is not None and self.dtype != torch.bfloat16:
+                raise ValueError(f"mixed_bf16 requires the bf16 compute dtype (got {self.dtype})")
 
     def resolved_device(self) -> torch.device:
         if self.device is not None:
@@ -138,6 +177,18 @@ class RuntimeConfig:
         return torch.device("cuda")
 
     def resolved_dtype(self) -> torch.dtype:
+        if self.quantize_int8 or self.mixed_bf16:
+            return torch.bfloat16
         if self.dtype is not None:
             return self.dtype
         return torch.bfloat16 if self.resolved_device().type == "cuda" else torch.float32
+
+    def image_dtype(self) -> torch.dtype:
+        """The dtype the source image is preprocessed to. Under mixed the
+        model gets an f32 image: every primitive returns its input's dtype,
+        so the f32 image keeps the patch embed, the ViT's residual carry,
+        the decoder and the head f32, while ``vit.block_forward`` casts the
+        matmul inputs down to the weights' bf16."""
+        if self.mixed_bf16:
+            return torch.float32
+        return self.resolved_dtype()

@@ -27,7 +27,9 @@
 // sum per query row. Keys >= n_valid score -1e30 (not -inf), so ragged
 // rows never poison valid ones; rows >= N are never read. Three paths:
 //
-// * bf16 with D in {32, 64}: TMA + mbarriers + wgmma. A block serves one
+// * bf16 and f16 with D in {32, 64}: TMA + mbarriers + wgmma (one template;
+//   the two types share the m64nNk16 shapes and fragment layouts, hopper.cuh
+//   Half16). A block serves one
 //   (batch, head) and a run of its 64-row query tiles, with four consumer
 //   warpgroups (three when K and V stream) taking tiles in turn, a round
 //   of tiles at a time. Where the head's K and V fit in shared
@@ -43,7 +45,8 @@
 //   crosses into the next batch. Each warpgroup double-buffers its q tiles
 //   (the next tile's load overlaps this one's math). S = q k^T is a wgmma
 //   with both operands K-major in shared memory; P stays in registers (the
-//   S accumulator's layout is the A-fragment layout), is rounded to bf16,
+//   S accumulator's layout is the A-fragment layout), is rounded to the
+//   input type (bf16 or f16),
 //   and O += P V is a wgmma with A from registers and V as it lies, an
 //   MN-major B operand read through the transpose bit. S of key tile j + 1
 //   and P V of tile j are in flight together, and tile j + 1's softmax
@@ -77,9 +80,9 @@
 //   0.0083 ms at the FOV shape, against 0.0204 ms for one f32 product on
 //   CUDA cores; the pre-pass moves 3 x the input's bytes (read once, two
 //   halves written).
-// * D = 8 (TINY), bf16 and f32: FP32 CUDA cores, one thread per query row
+// * D = 8 (TINY), every dtype: FP32 CUDA cores, one thread per query row
 //   holding its q row and output accumulator; 8 is narrower than one
-//   wgmma k-step of bf16 and a 32-column panel.
+//   16-bit wgmma k-step and a 32-column panel.
 
 #include <math.h>
 #include <stddef.h>
@@ -90,12 +93,14 @@ namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
 
 // Pointers and element strides of one call. Row n of head h of batch b of
 // q starts at q + b * q_b + h * q_h + n * q_n; likewise k, v and o.
@@ -111,7 +116,7 @@ struct Attn {
 };
 
 // ---------------------------------------------------------------------------
-// CUDA-core path: D = 8, f32 and bf16.
+// CUDA-core path: D = 8, f32, bf16 and f16.
 
 constexpr int BM = 64;  // query rows per block, one thread each
 constexpr int BN = 32;  // keys per shared-memory tile
@@ -198,7 +203,7 @@ attention_kernel(const Attn<T> a) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16, D in {32, 64}.
+// Tensor-core path: bf16 and f16 (T), D in {32, 64}.
 
 using namespace hopper;
 
@@ -276,18 +281,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int key0, int n_val
     }
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_qk(float (&s)[32], const uint8_t* qb, const uint8_t* kt) {
   constexpr int RB = 2 * D;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n64k16_ss(s, make_desc<RB>(qb + kk * 32, 16, 8 * RB),
+    wgmma_m64n64k16_ss<T>(s, make_desc<RB>(qb + kk * 32, 16, 8 * RB),
                        make_desc<RB>(kt + kk * 32, 16, 8 * RB), kk > 0);
   wgmma_commit();
 }
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[4][4],
                                          const uint8_t* vt) {
   constexpr int RB = 2 * D;
@@ -296,29 +301,28 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t dv = make_desc<RB>(vt + kk * 16 * RB, 16, 8 * RB);
     if constexpr (D == 64)
-      wgmma_m64n64k16_rs(o, pa[kk], dv, 1);
+      wgmma_m64n64k16_rs<T>(o, pa[kk], dv, 1);
     else
-      wgmma_m64n32k16_rs(o, pa[kk], dv, 1);
+      wgmma_m64n32k16_rs<T>(o, pa[kk], dv, 1);
   }
   wgmma_commit();
 }
 
-// P (f32, accumulator layout) to bf16 A fragments: k16 step kk covers keys
+// P (f32, accumulator layout) to T A fragments: k16 step kk covers keys
 // 16kk..16kk+15, i.e. accumulator blocks 2kk and 2kk + 1.
+template <typename T>
 __device__ __forceinline__ void pack_p(const float (&s)[32], uint32_t (&pa)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int n = 2 * kk + half;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(s[4 * n], s[4 * n + 1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(s[4 * n + 2], s[4 * n + 3]);
-      pa[kk][2 * half] = *reinterpret_cast<const uint32_t*>(&lo);
-      pa[kk][2 * half + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+      pa[kk][2 * half] = pack2<T>(s[4 * n], s[4 * n + 1]);
+      pa[kk][2 * half + 1] = pack2<T>(s[4 * n + 2], s[4 * n + 3]);
     }
 }
 
-template <int D, bool RESIDENT>
+template <typename T, int D, bool RESIDENT>
 __global__ void __launch_bounds__(TcCfg<D, RESIDENT>::THREADS, 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -436,18 +440,18 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     uint32_t pa[4][4];
 
     mbar_wait(&kvfull[slot(u0)], parity(u0));
-    issue_qk<D>(s, qb, ks + slot(u0) * TILE);
+    issue_qk<T, D>(s, qb, ks + slot(u0) * TILE);
     wgmma_wait_all();
     fence_regs(s);
     softmax_tile(s, 0, n_valid, t, scale_log2, m_run, l_run, alpha);
-    pack_p(s, pa);
+    pack_p<T>(s, pa);
     for (int j = 0; j + 1 < key_tiles; ++j) {
       // S of the next tile and P V of this one in flight together; the next
       // tile's softmax runs while P V finishes
       const int u = u0 + j;
       mbar_wait(&kvfull[slot(u + 1)], parity(u + 1));
-      issue_qk<D>(s, qb, ks + slot(u + 1) * TILE);
-      issue_pv<D>(o, pa, vs + slot(u) * TILE);
+      issue_qk<T, D>(s, qb, ks + slot(u + 1) * TILE);
+      issue_pv<T, D>(o, pa, vs + slot(u) * TILE);
       wgmma_wait_1();
       fence_regs(s);
       softmax_tile(s, (j + 1) * TC_ROWS, n_valid, t, scale_log2, m_run, l_run, alpha);
@@ -463,9 +467,9 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         o[4 * n + 2] *= alpha[1];
         o[4 * n + 3] *= alpha[1];
       }
-      pack_p(s, pa);
+      pack_p<T>(s, pa);
     }
-    issue_pv<D>(o, pa, vs + slot(u0 + key_tiles - 1) * TILE);
+    issue_pv<T, D>(o, pa, vs + slot(u0 + key_tiles - 1) * TILE);
     wgmma_wait_all();
     fence_regs(o);
     release(u0 + key_tiles - 1);
@@ -483,9 +487,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t row = warp * 16 + g + 8 * r;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(o[4 * n + 2 * r] * inv_l[r], o[4 * n + 2 * r + 1] * inv_l[r]);
-        *reinterpret_cast<__nv_bfloat162*>(qb + swizzle<RB>(row * RB + n * 16 + 4 * t)) = v;
+        *reinterpret_cast<uint32_t*>(qb + swizzle<RB>(row * RB + n * 16 + 4 * t)) =
+            pack2<T>(o[4 * n + 2 * r] * inv_l[r], o[4 * n + 2 * r + 1] * inv_l[r]);
       }
     }
     fence_proxy_async();
@@ -881,15 +884,15 @@ bool kv_resident(int n_valid) {
   return C::smem_bytes((n_valid + TC_ROWS - 1) / TC_ROWS) <= C::MAX_SMEM;
 }
 
-// bf16, D in {32, 64}: tensor maps over the (D, N, H, B) views of q, k, v
-// and o, and a grid of (query-tile runs, heads, batch).
-template <int D, bool RESIDENT>
-int launch_tc_cfg(const CUtensorMap (&maps)[4], const Attn<__nv_bfloat16>& a, int B, int H,
+// bf16 and f16, D in {32, 64}: tensor maps over the (D, N, H, B) views of
+// q, k, v and o, and a grid of (query-tile runs, heads, batch).
+template <typename T, int D, bool RESIDENT>
+int launch_tc_cfg(const CUtensorMap (&maps)[4], const Attn<T>& a, int B, int H,
                   cudaStream_t stream) {
   using C = TcCfg<D, RESIDENT>;
   // set on every launch: the attribute belongs to the current device
   const cudaError_t attr = cudaFuncSetAttribute(
-      attention_wgmma_kernel<D, RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_wgmma_kernel<T, D, RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // enough blocks to fill the card: with few heads, fewer query tiles per block
@@ -901,13 +904,13 @@ int launch_tc_cfg(const CUtensorMap (&maps)[4], const Attn<__nv_bfloat16>& a, in
   per_block = min(per_block, q_tiles);
   const dim3 grid((unsigned)((q_tiles + per_block - 1) / per_block), (unsigned)H, (unsigned)B);
   const int smem = C::smem_bytes((a.n_valid + TC_ROWS - 1) / TC_ROWS);
-  attention_wgmma_kernel<D, RESIDENT><<<grid, C::THREADS, smem, stream>>>(
+  attention_wgmma_kernel<T, D, RESIDENT><<<grid, C::THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], a.N, a.n_valid, a.scale_log2, per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_tc(const Attn<__nv_bfloat16>& a, int B, int H, cudaStream_t stream) {
+template <typename T, int D>
+int launch_tc(const Attn<T>& a, int B, int H, cudaStream_t stream) {
   CUtensorMap maps[4];
   const void* ptrs[4] = {a.q, a.k, a.v, a.o};
   const long long str[4][3] = {{a.q_n, a.q_h, a.q_b},
@@ -919,11 +922,12 @@ int launch_tc(const Attn<__nv_bfloat16>& a, int B, int H, cudaStream_t stream) {
   for (int i = 0; i < 4; ++i) {
     const uint64_t strides[3] = {(uint64_t)str[i][0] * 2, (uint64_t)str[i][1] * 2,
                                  (uint64_t)str[i][2] * 2};
-    const int rc = make_map(&maps[i], ptrs[i], 4, dims, strides, box, 2 * D);
+    const int rc = make_map(&maps[i], ptrs[i], 4, dims, strides, box, 2 * D,
+                            Half16<T>::kMapType);
     if (rc) return rc;
   }
-  if (kv_resident<D>(a.n_valid)) return launch_tc_cfg<D, true>(maps, a, B, H, stream);
-  return launch_tc_cfg<D, false>(maps, a, B, H, stream);
+  if (kv_resident<D>(a.n_valid)) return launch_tc_cfg<T, D, true>(maps, a, B, H, stream);
+  return launch_tc_cfg<T, D, false>(maps, a, B, H, stream);
 }
 
 int dispatch(const Attn<float>& a, int B, int H, int D, void* scratch, cudaStream_t stream) {
@@ -937,11 +941,13 @@ int dispatch(const Attn<float>& a, int B, int H, int D, void* scratch, cudaStrea
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const Attn<__nv_bfloat16>& a, int B, int H, int D, void*, cudaStream_t stream) {
+// bf16 and f16
+template <typename T>
+int dispatch(const Attn<T>& a, int B, int H, int D, void*, cudaStream_t stream) {
   switch (D) {
-    case 8: launch<__nv_bfloat16, 8>(a, B, H, stream); break;
-    case 32: return launch_tc<32>(a, B, H, stream);
-    case 64: return launch_tc<64>(a, B, H, stream);
+    case 8: launch<T, 8>(a, B, H, stream); break;
+    case 32: return launch_tc<T, 32>(a, B, H, stream);
+    case 64: return launch_tc<T, 64>(a, B, H, stream);
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());
@@ -973,14 +979,15 @@ int run_bhnd(const void* q, const void* k, const void* v, void* o, void* scratch
 }  // namespace
 
 // Floats of device scratch one call needs: the f32 tensor-core path's split
-// operands (3xTF32), 0 for every other path. dtype: 0 = float32, 1 = bfloat16.
+// operands (3xTF32), 0 for every other path. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 extern "C" long long me_attention_scratch_floats(int B, int N, int H, int D, int n_valid,
                                                  int dtype) {
   if (dtype != 0 || (D != 32 && D != 64)) return 0;
   return Tf32Scratch::floats(B, N, H, D, n_valid);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; scratch: me_attention_scratch_floats
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; scratch: me_attention_scratch_floats
 // floats, or null when that is 0. Both entries return cudaGetLastError()
 // after the launches, or a negative code for arguments the kernels do not
 // take.
@@ -992,6 +999,8 @@ extern "C" int me_attention_qkv(const void* qkv, void* out, void* scratch, int B
     return run_qkv<float>(qkv, out, scratch, B, N, H, D, n_valid, scale_log2, st);
   if (dtype == 1)
     return run_qkv<__nv_bfloat16>(qkv, out, scratch, B, N, H, D, n_valid, scale_log2, st);
+  if (dtype == 2)
+    return run_qkv<__half>(qkv, out, scratch, B, N, H, D, n_valid, scale_log2, st);
   return -3;
 }
 
@@ -1008,11 +1017,13 @@ extern "C" int me_attention_bhnd(const void* q, const void* k, const void* v, vo
   if (dtype == 1)
     return run_bhnd<__nv_bfloat16>(q, k, v, o, scratch, B, H, N, D, n_valid, scale_log2,
                                    strides, st);
+  if (dtype == 2)
+    return run_bhnd<__half>(q, k, v, o, scratch, B, H, N, D, n_valid, scale_log2, strides, st);
   return -3;
 }
 
 // Dynamic shared memory of one tensor-core launch at head dim D over
-// n_valid keys (for reports): bf16 (dtype 1) K and V whole where they fit,
+// n_valid keys (for reports): bf16 and f16 (dtype 1, 2) K and V whole where they fit,
 // else the ring; f32 (dtype 0) the 3xTF32 kernel's two query tiles and
 // rings. -1 for a D the tensor-core paths do not take.
 extern "C" int me_attention_smem_bytes(int D, int n_valid, int dtype) {

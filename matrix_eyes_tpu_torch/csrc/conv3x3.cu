@@ -16,10 +16,11 @@
 // The conv is an implicit GEMM: M = output pixels, N = Cout, K = 9 taps x
 // Cin, as the TPU kernel's row band does with 9 shifted matmuls. Cin and
 // Cout are multiples of 8, so every TMA stride is a multiple of 16 bytes
-// (the wrapper pads other counts). Both dtypes share the band, the ring,
+// (the wrapper pads other counts). Every dtype shares the band, the ring,
 // the epilogue and the K split:
 //
-// * bf16: a block computes a band of 128 output pixels (R rows x Wt
+// * bf16 and f16 (one template: the two types share the m64nNk16 wgmma
+//   shapes and fragment layouts, hopper.cuh Half16): a block computes a band of 128 output pixels (R rows x Wt
 //   columns of one image) by BN = 128 or 256 output channels. One producer
 //   warp issues, per K step (one tap, 64 input channels), one TMA box (64
 //   ch, Wt, R, 1) of x at (c0, x0 + dv - 1, y0 + du - 1, b) and BN / 64
@@ -31,16 +32,17 @@
 //   so nothing is transposed in shared memory. Two consumer warpgroups each
 //   own 64 of the pixels and issue wgmma m64nBNk16 with A from registers:
 //   ldmatrix from the swizzled stage, then relu_in as one __hmax2 per
-//   register. The register form was chosen over an in-place ReLU pass over
-//   the stage because it reads the tile once, writes nothing back and needs
-//   no extra barrier; both ReLU settings take it, so there is one code path.
+//   register (a pair of bf16 or f16). The register form was chosen over an
+//   in-place ReLU pass over the stage because it reads the tile once,
+//   writes nothing back and needs no extra barrier; both ReLU settings take
+//   it, so there is one code path.
 // * f32 (--dtype f32): tensor cores at f32 accuracy, 3xTF32. Every operand
 //   is split as v = big + small, big = tf32(v), small = tf32(v - big), and
 //   every product is small*big + big*small + big*big, three wgmma
 //   m64n128k8.tf32: about 21 mantissa bits a product where one TF32 product
 //   keeps 11 (tests/test_torch_tf32.py emulates it up to K = 9216). A K
 //   step is one tap x 32 input channels, a 128-byte swizzle row of f32 as
-//   64 channels are of bf16: a stage is 16 KB of x and 2 x 128 x 128 bytes
+//   64 channels are of a 16-bit type: a stage is 16 KB of x and 2 x 128 x 128 bytes
 //   of weight, four stages (16-channel steps in eight 24 KB stages were
 //   slower at every f32 shape of the forward). x arrives raw by TMA and is
 //   split in registers after ldmatrix, relu_in first: a pre-pass over x
@@ -75,11 +77,10 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 constexpr int TC_BM = 128;       // output pixels per block: two warpgroups x 64
-constexpr int TC_BK = 64;        // bf16 input channels per K step: one 128-byte swizzle row
+constexpr int TC_BK = 64;        // bf16/f16 input channels per K step: one 128-byte swizzle row
 constexpr int TF_BK = 32;        // f32 input channels per K step: one 128-byte swizzle row
 constexpr int TF_BN = 128;       // f32 output channels per block
 constexpr int TC_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
@@ -109,27 +110,26 @@ struct Tf32Cfg {
   static_assert(SMEM <= 232448, "the ring fits one block per SM");
 };
 
-// 16 bytes of the output type, read into and written from f32.
+// 16 bytes of the output type, read into and written from f32: eight bf16
+// or f16 values, or four f32.
 template <typename T>
-struct Vec;
-
-template <>
-struct Vec<bf16> {
+struct Vec {
+  using H = Half16<T>;
   static constexpr int N = 8;
   static __device__ __forceinline__ void add(float (&v)[8], const uint4& u) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const typename H::T2* h = reinterpret_cast<const typename H::T2*>(&u);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
+      const float2 f = H::unpack(h[k]);
       v[2 * k] += f.x;
       v[2 * k + 1] += f.y;
     }
   }
   static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
     uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    typename H::T2* h = reinterpret_cast<typename H::T2*>(&u);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    for (int k = 0; k < 4; ++k) h[k] = H::pack(v[2 * k], v[2 * k + 1]);
     return u;
   }
 };
@@ -266,12 +266,12 @@ __device__ __forceinline__ void epilogue(uint8_t* smem, const float (&acc)[TN / 
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA + mbarrier ring + wgmma.
+// bf16 and f16 (T): TMA + mbarrier ring + wgmma.
 
-template <int TN, bool RELU>
+template <typename T, int TN, bool RELU>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                     const __grid_constant__ CUtensorMap wmap, const TcArgs<bf16> p) {
+                     const __grid_constant__ CUtensorMap wmap, const TcArgs<T> p) {
   using C = TcCfg<TN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -331,12 +331,13 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int kk = 0; kk < 4; ++kk)
         ldmatrix_x4(af[kk], a_tile + swizzle<128>(row_off + (2 * kk + lane / 16) * 16));
       if (RELU) {
-        const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+        using T2 = typename Half16<T>::T2;
+        const T2 zero = Half16<T>::pack(0.f, 0.f);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&af[kk][r]);
+            T2 v = *reinterpret_cast<T2*>(&af[kk][r]);
             v = __hmax2(v, zero);
             af[kk][r] = *reinterpret_cast<uint32_t*>(&v);
           }
@@ -348,9 +349,9 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t d = desc + (uint64_t)((kk * 16 * 128) >> 4);
         if constexpr (TN == 256)
-          wgmma_m64n256k16_rs(acc, af[kk], d, 1);
+          wgmma_m64n256k16_rs<T>(acc, af[kk], d, 1);
         else
-          wgmma_m64n128k16_rs(acc, af[kk], d, 1);
+          wgmma_m64n128k16_rs<T>(acc, af[kk], d, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -360,7 +361,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
-    epilogue<bf16, TN, C::EPI_LD>(smem, acc, p, tile);
+    epilogue<T, TN, C::EPI_LD>(smem, acc, p, tile);
   }
 }
 
@@ -548,13 +549,13 @@ int launch_ring(Kernel kernel, int smem, const CUtensorMap& xmap, const CUtensor
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TN>
-int launch_bf16(const CUtensorMap& xmap, const CUtensorMap& wmap, const TcArgs<bf16>& a,
-                dim3 grid, bool relu_in, cudaStream_t stream) {
-  return relu_in ? launch_ring(conv3x3_wgmma_kernel<TN, true>, TcCfg<TN>::SMEM, xmap, wmap, a,
-                               grid, stream)
-                 : launch_ring(conv3x3_wgmma_kernel<TN, false>, TcCfg<TN>::SMEM, xmap, wmap, a,
-                               grid, stream);
+template <typename T, int TN>
+int launch_16(const CUtensorMap& xmap, const CUtensorMap& wmap, const TcArgs<T>& a,
+              dim3 grid, bool relu_in, cudaStream_t stream) {
+  return relu_in ? launch_ring(conv3x3_wgmma_kernel<T, TN, true>, TcCfg<TN>::SMEM, xmap, wmap,
+                               a, grid, stream)
+                 : launch_ring(conv3x3_wgmma_kernel<T, TN, false>, TcCfg<TN>::SMEM, xmap, wmap,
+                               a, grid, stream);
 }
 
 // Floats of workspace one call needs: the split weights (f32) first, then
@@ -563,7 +564,7 @@ long long workspace_floats(int B, int H, int W, int Cin, int Cout, bool f32, int
   return (f32 ? 18LL * Cin * Cout : 0) + (splits > 1 ? (long long)splits * B * H * W * Cout : 0);
 }
 
-// The band (Wt x R), the N tile (bn: 128 or 256 for bf16, TF_BN for f32)
+// The band (Wt x R), the N tile (bn: 128 or 256 for bf16 and f16, TF_BN for f32)
 // and the K split come from the wrapper's plan (ops/conv3x3.py: plan),
 // which this only checks.
 template <typename T>
@@ -577,8 +578,8 @@ int launch(const void* x, const void* w, const void* bias, const void* skip, con
       (F32 ? bn != TF_BN : bn != 128 && bn != 256) || splits < 1 ||
       (workspace == nullptr && workspace_floats(B, H, W, Cin, Cout, F32, splits) > 0))
     return -4;
-  const CUtensorMapDataType type =
-      F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if constexpr (!F32) type = Half16<T>::kMapType;
   CUtensorMap xmap, wmap;
   const uint64_t xdims[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint64_t xstr[3] = {(uint64_t)Cin * E, (uint64_t)W * Cin * E, (uint64_t)H * W * Cin * E};
@@ -632,8 +633,8 @@ int launch(const void* x, const void* w, const void* bias, const void* skip, con
                  : launch_ring(conv3x3_tf32_kernel<false>, Tf32Cfg::SMEM, xmap, wmap, a, grid,
                                stream);
   else
-    rc = bn == 256 ? launch_bf16<256>(xmap, wmap, a, grid, relu_in != 0, stream)
-                   : launch_bf16<128>(xmap, wmap, a, grid, relu_in != 0, stream);
+    rc = bn == 256 ? launch_16<T, 256>(xmap, wmap, a, grid, relu_in != 0, stream)
+                   : launch_16<T, 128>(xmap, wmap, a, grid, relu_in != 0, stream);
   if (rc || splits == 1) return rc;
   const long long vecs = a.split_stride / Vec<T>::N;
   conv3x3_splitk_reduce<T><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
@@ -643,7 +644,7 @@ int launch(const void* x, const void* w, const void* bias, const void* skip, con
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bias, skip and skip2 may be null. The
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. bias, skip and skip2 may be null. The
 // band (Wt x R pixels, Wt * R = 128), the N tile (128 or 256) and the K
 // split come from the caller, with a workspace of
 // me_conv3x3_workspace_floats floats (null when that is 0). Returns
@@ -660,8 +661,11 @@ extern "C" int me_conv3x3(const void* x, const void* w, const void* bias, const 
     return launch<float>(x, w, bias, skip, skip2, out, ws, B, H, W, Cin, Cout, relu_in, Wt, R, bn,
                          splits, st);
   if (dtype == 1)
-    return launch<bf16>(x, w, bias, skip, skip2, out, ws, B, H, W, Cin, Cout, relu_in, Wt, R, bn,
-                        splits, st);
+    return launch<__nv_bfloat16>(x, w, bias, skip, skip2, out, ws, B, H, W, Cin, Cout, relu_in,
+                                 Wt, R, bn, splits, st);
+  if (dtype == 2)
+    return launch<__half>(x, w, bias, skip, skip2, out, ws, B, H, W, Cin, Cout, relu_in, Wt, R,
+                          bn, splits, st);
   return -3;
 }
 
@@ -672,7 +676,8 @@ extern "C" long long me_conv3x3_workspace_floats(int B, int H, int W, int Cin, i
   return workspace_floats(B, H, W, Cin, Cout, dtype == 0, splits);
 }
 
-// Dynamic shared memory of one launch with N tile bn (for reports).
+// Dynamic shared memory of one launch with N tile bn (for reports); bf16 and
+// f16 (dtype 1, 2) share their rings.
 extern "C" int me_conv3x3_smem_bytes(int bn, int dtype) {
   if (dtype == 0) return Tf32Cfg::SMEM;
   return bn == 256 ? TcCfg<256>::SMEM : TcCfg<128>::SMEM;

@@ -18,8 +18,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links against libcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -208,78 +211,143 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // d[4j + 2, 3] = row 16w + g + 8, same columns. The register A operand of
 // one k16 step has the same layout per 16 x 16 block as mma.sync's.
 
+// The 16-bit element types of the tensor-core paths. bf16 and f16 share the
+// wgmma shapes (m64nNk16), descriptors and fragment layouts; only the type
+// named in the instruction, the rounding of a float pair and the tensor-map
+// type differ.
+template <typename T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ T2 pack(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 unpack(T2 v) { return __bfloat1622float2(v); }
+};
+
+template <>
+struct Half16<__half> {
+  using T2 = __half2;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ T2 pack(float lo, float hi) { return __floats2half2_rn(lo, hi); }
+  static __device__ __forceinline__ float2 unpack(T2 v) { return __half22float2(v); }
+};
+
+// Two floats rounded to nearest into one 32-bit register of T pairs (lo in
+// the low half), the layout of a wgmma A fragment.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const typename Half16<T>::T2 v = Half16<T>::pack(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The instruction's A and B type for T: "bf16" or "f16", pasted into the
+// asm text below as a literal.
+#define WG_TYPED(T, BODY)                       \
+  if constexpr (std::is_same<T, __half>::value) { \
+    BODY("f16");                                \
+  } else {                                      \
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 or f16"); \
+    BODY("bf16");                               \
+  }
+
 // D(64 x 256, f32) (+)= A(64 x 16, registers) * B(16 x 256, MN-major in shared memory)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : WG_ACC128(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+#define WG_BODY(TY)                                                                           \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %133, 0;\n"                                                             \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "                            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "      \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "      \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "      \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                      \
+      : WG_ACC128(d)                                                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate))
+  WG_TYPED(T, WG_BODY)
+#undef WG_BODY
 }
 
 // D(64 x 128, f32) (+)= A(64 x 16, registers) * B(16 x 128, MN-major in shared memory)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+#define WG_BODY(TY)                                                                      \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\n"                                                               \
+      "setp.ne.b32 p, %69, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                      \
+      : WG_ACC64(d)                                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate))
+  WG_TYPED(T, WG_BODY)
+#undef WG_BODY
 }
 
 // D(64 x 64, f32) (+)= A(64 x 16, registers) * B(16 x 64, MN-major in shared memory)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+#define WG_BODY(TY)                                                                      \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\n"                                                               \
+      "setp.ne.b32 p, %37, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                      \
+      : WG_ACC32(d)                                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate))
+  WG_TYPED(T, WG_BODY)
+#undef WG_BODY
 }
 
 // D(64 x 32, f32) (+)= A(64 x 16, registers) * B(16 x 32, MN-major in shared memory)
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : WG_ACC16(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+#define WG_BODY(TY)                                                                \
+  asm volatile(                                                                    \
+      "{\n.reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %21, 0;\n"                                                   \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "   \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                \
+      : WG_ACC16(d)                                                                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate))
+  WG_TYPED(T, WG_BODY)
+#undef WG_BODY
 }
 
 // D(64 x 64, f32) (+)= A(64 x 16) * B(16 x 64), both K-major in shared memory;
 // accumulate = 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_ACC32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+#define WG_BODY(TY)                                                                      \
+  asm volatile(                                                                          \
+      "{\n.reg .pred p;\n"                                                               \
+      "setp.ne.b32 p, %34, 0;\n"                                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                    \
+      : WG_ACC32(d)                                                                      \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+  WG_TYPED(T, WG_BODY)
+#undef WG_BODY
 }
+
+#undef WG_TYPED
 
 // TF32 (f32 with a 10-bit mantissa, as cvt.rna.tf32.f32 rounds: to nearest,
 // ties away from zero). wgmma reads .tf32 operands K-major only (no
@@ -379,12 +447,12 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map of `rank` dimensions (innermost first) with byte strides of
-// dimensions 1.. and a box of `box` elements (bf16 unless `type` says
-// otherwise); coordinates outside the tensor read as zeros. Returns 0, or a
-// negative code.
+// dimensions 1.. and a box of `box` elements of `type` (bf16, f16 or f32:
+// Half16<T>::kMapType for the 16-bit ones); coordinates outside the tensor
+// read as zeros. Returns 0, or a negative code.
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                     const uint64_t* strides, const uint32_t* box, int row_bytes,
-                    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                    CUtensorMapDataType type) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -10;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};

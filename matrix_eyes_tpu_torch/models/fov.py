@@ -6,9 +6,12 @@ through a linear 1024 -> 128, drop the cls token and fold to a (24, 24,
 small conv head reduces to one scalar, the FOV in degrees.
 
 The FOV scalar divides every output depth, so this network runs its
-activations in f32 under every dtype. Its weights are the compute
-dtype's values upcast to f32 (``pt.convert`` and ``models.init`` store
-them so); the upcast here is a no-op for them.
+activations in f32 under every dtype. Its float weights are the policy's
+values upcast to f32 (``pt.convert`` and ``models.init`` store them so);
+the upcast here is a no-op for them. Under ``--dtype int8`` its block
+matmul weights stay int8 codes with their f32 scales: the JAX package
+casts them to f32 and its int8 x f32 product returns integers, so the
+products are the int8 products ``ops/quant.qlinear`` computes.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def forward(cfg: ModelConfig, params: Params, x: torch.Tensor,
     s = cfg.tokens_per_side
     x = downsample_quarter(x.float())
     lowres_feature = lowres_feature.float()
-    params = tree_map(lambda _path, t: t.float(), params)
+    params = tree_map(lambda _path, t: t.float() if t.is_floating_point() else t, params)
     tokens, _ = vit.forward_features(cfg, params["encoder"], x)
     tokens = nn.linear(tokens, params["linear"]["w"], params["linear"]["b"])
     feat = tokens[:, 1:, :].reshape(x.shape[0], s, s, -1)

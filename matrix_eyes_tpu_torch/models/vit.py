@@ -1,4 +1,4 @@
-"""DINOv2-style ViT-L/16 (the float path of ``matrix_eyes_tpu/models/vit.py``).
+"""DINOv2-style ViT-L/16 (port of ``matrix_eyes_tpu/models/vit.py``, one device).
 
 Block parameters stay stacked along a leading layer axis, as the JAX
 package keeps them; the layer loop indexes them. Attention runs through
@@ -10,6 +10,12 @@ Under a narrow compute dtype the residual stream is carried in f32
 dtype for the matmuls, while LayerNorm inputs, residual adds and the
 LayerScale products run in f32, the branch output cast up BEFORE the
 LayerScale multiply.
+
+Under ``--dtype int8`` the blocks hold int8 matmul weights (``qkv_qw``,
+``proj_qw``, ... with f32 scales, ``ops/quant.py``): qkv and fc1 run as
+int8 x int8 -> int32 products on dynamically quantized activations, proj
+and fc2 on their weights dequantized to the compute dtype, which the
+(unquantized) norm parameters carry.
 """
 
 from __future__ import annotations
@@ -21,23 +27,35 @@ import torch
 from matrix_eyes_tpu_torch.config import ModelConfig
 from matrix_eyes_tpu_torch.ops import nn
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+from matrix_eyes_tpu_torch.ops.quant import dequantize_weight, is_quantized_blocks, qlinear
 
 Params = Dict[str, torch.Tensor]
 
 
 def block_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """One pre-norm transformer block; ``p`` holds one layer's parameters."""
-    wdt = p["qkv_w"].dtype
+    quantized = is_quantized_blocks(p)
+    # int8: the activations' compute dtype is the norm parameters'
+    wdt = p["norm1_scale"].dtype if quantized else p["qkv_w"].dtype
     scale = 1.0 / (cfg.head_dim ** 0.5)
     h = nn.layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps).to(wdt)
-    qkv = nn.linear(h, p["qkv_w"], p["qkv_b"])  # (B, N, 3C)
+    if quantized:
+        qkv = qlinear(h, p["qkv_qw"], p["qkv_sw"], p["qkv_b"])
+    else:
+        qkv = nn.linear(h, p["qkv_w"], p["qkv_b"])  # (B, N, 3C)
     o = attention_qkv(qkv, cfg.num_heads, scale)
-    o = nn.linear(o, p["proj_w"], p["proj_b"])
+    proj_w = dequantize_weight(p["proj_qw"], p["proj_sw"], wdt) if quantized else p["proj_w"]
+    o = nn.linear(o, proj_w, p["proj_b"])
     x = x + o.to(x.dtype) * p["ls1"].to(x.dtype)
 
     h = nn.layer_norm(x, p["norm2_scale"], p["norm2_bias"], cfg.layer_norm_eps).to(wdt)
-    h = nn.gelu(nn.linear(h, p["fc1_w"], p["fc1_b"]))
-    h = nn.linear(h, p["fc2_w"], p["fc2_b"])
+    if quantized:
+        h = qlinear(h, p["fc1_qw"], p["fc1_sw"], p["fc1_b"])
+    else:
+        h = nn.linear(h, p["fc1_w"], p["fc1_b"])
+    h = nn.gelu(h)
+    fc2_w = dequantize_weight(p["fc2_qw"], p["fc2_sw"], wdt) if quantized else p["fc2_w"]
+    h = nn.linear(h, fc2_w, p["fc2_b"])
     return x + h.to(x.dtype) * p["ls2"].to(x.dtype)
 
 

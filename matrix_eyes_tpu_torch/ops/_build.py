@@ -97,12 +97,12 @@ def load(name: str, signatures: Signatures) -> ctypes.CDLL:
 
 
 def dtype_code(dtype) -> int:
-    """The kernels' dtype argument: 0 = float32, 1 = bfloat16."""
+    """The kernels' dtype argument: 0 = float32, 1 = bfloat16, 2 = float16."""
     import torch
 
-    codes = {torch.float32: 0, torch.bfloat16: 1}
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
     if dtype not in codes:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {dtype}")
+        raise TypeError(f"the CUDA kernels take float32, bfloat16 or float16, got {dtype}")
     return codes[dtype]
 
 

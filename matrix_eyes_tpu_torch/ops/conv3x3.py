@@ -4,10 +4,11 @@ and its plain version.
 Port of ``matrix_eyes_tpu/ops/conv3x3.py:conv3x3_pallas``: NHWC x HWIO +
 bias, optional ReLU on the input (``relu_in``), up to two residuals added
 in f32 in the epilogue (``skip``, ``skip2``), output in the input dtype.
-Both kernels (bf16, and f32 as three TF32 products on the tensor cores)
-read their operands by TMA, whose strides must be multiples of 16 bytes:
-channel counts that are not multiples of 8 are padded with zeros around the
-launch (``conv3x3_padded``), which gives bf16 16-byte and f32 32-byte rows.
+Both kernels (bf16 and f16 in one template, and f32 as three TF32 products
+on the tensor cores) read their operands by TMA, whose strides must be
+multiples of 16 bytes: channel counts that are not multiples of 8 are padded
+with zeros around the launch (``conv3x3_padded``), which gives 16-bit
+16-byte and f32 32-byte rows.
 The TPU's lane and VMEM gates are not ported.
 """
 
@@ -47,8 +48,10 @@ _BAND_WIDTHS = (128, 64, 32, 16, 8)
 # input channels per K step (TC_BK, TF_BK in csrc/conv3x3.cu), the modelled
 # time of one 128 x 256 step and a block's fixed time (prologue, pipeline
 # fill, epilogue), as measured on the H100: bf16 ~1.05 us a step (no fixed
-# term); f32 ~2.2 us a step (1.1 at its 128-channel tile) and ~3.5 us a block
-_STEP = {torch.bfloat16: (64, 1.05e-6, 0.0), torch.float32: (32, 2.2e-6, 3.5e-6)}
+# term); f32 ~2.2 us a step (1.1 at its 128-channel tile) and ~3.5 us a block.
+# f16 runs bf16's code on the tensor cores at bf16's rate: bf16's entry.
+_STEP = {torch.bfloat16: (64, 1.05e-6, 0.0), torch.float16: (64, 1.05e-6, 0.0),
+         torch.float32: (32, 2.2e-6, 3.5e-6)}
 
 
 class Plan(NamedTuple):
@@ -65,18 +68,18 @@ class Plan(NamedTuple):
 def plan(B: int, H: int, W: int, cin: int, cout: int, sms: int = 132,
          dtype: torch.dtype = torch.bfloat16) -> Plan:
     """The band that wastes the fewest pixels at the image's edges (wider
-    on ties); N tile 256 above 128 output channels in bf16, else 128 (the
+    on ties); N tile 256 above 128 output channels in bf16 and f16, else 128 (the
     f32 kernel's two accumulators fit no wider); and, for grids that
     leave SMs idle (fewer than four waves of blocks), the K split with the
     least modelled time: waves of blocks x the time of a block's K steps
-    (``_STEP``: a step is one tap x 64 bf16 or 32 f32 input channels), plus
+    (``_STEP``: a step is one tap x 64 bf16/f16 or 32 f32 input channels), plus
     the split's f32 partials written and read at ~3 TB/s."""
     def waste(wt):
         r = TILE_PIXELS // wt
         return math.ceil(W / wt) * wt * math.ceil(H / r) * r
 
     wt = min(_BAND_WIDTHS, key=lambda w: (waste(w), -w))
-    bn = 256 if cout > 128 and dtype == torch.bfloat16 else 128
+    bn = 256 if cout > 128 and dtype != torch.float32 else 128
     tiles = B * math.ceil(H / (TILE_PIXELS // wt)) * math.ceil(W / wt) * math.ceil(cout / bn)
     channels, step_s, block_s = _STEP[dtype]
     steps = 9 * math.ceil(cin / channels)

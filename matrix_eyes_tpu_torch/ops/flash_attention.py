@@ -9,18 +9,21 @@ entries, and their plain versions.
   copy.
 
 Either way the (B, H, N, N) score tensor never touches device memory. The
-kernel takes any token count (577 as it is: no token padding; the bf16 path
-keeps a head's K and V whole in shared memory up to 640 keys at D = 64 and
-1536 at D = 32, and streams them through a ring beyond) and the head sizes
-of every config: 8, 32 and 64. f32 at D = 32 and 64 runs on the tensor
-cores at f32 accuracy (3xTF32): a pre-pass splits q, k and v into TF32
-halves in a scratch buffer that the wrapper allocates, about twice the
-inputs' size. The TPU kernel's lane grouping of heads is
-not needed here: a block serves one head.
+kernel takes f32, bf16 and f16 and any token count (577 as it is: no token
+padding; the bf16 and f16 path keeps a head's K and V whole in shared
+memory up to 640 keys at D = 64 and 1536 at D = 32, and streams them
+through a ring beyond) and the head sizes of every config: 8, 32 and 64.
+f32 at D = 32 and 64 runs on the tensor cores at f32 accuracy (3xTF32): a
+pre-pass splits q, k and v into TF32 halves in a scratch buffer that the
+wrapper allocates, about twice the inputs' size. The TPU kernel's lane
+grouping of heads and its f16 exclusion (``flash_supported_dtype``, a
+Mosaic limit) are not needed here: a block serves one head, and f16 runs
+the bf16 path's code.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -106,10 +109,12 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                                   n_valid, float(scale) * _LOG2E, code, stream)
     _build.check_launch(rc, "attention_qkv")
     attention_qkv.launches += 1
+    attention_qkv.launches_by_dtype[qkv.dtype] += 1
     return out
 
 
 attention_qkv.launches = 0
+attention_qkv.launches_by_dtype = collections.Counter()
 
 
 def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -11,8 +11,8 @@ carry across as copies and the kernels read what they were designed for:
 
 Every primitive returns its input's dtype. LayerNorm statistics and GELU
 run in f32; GELU is the exact erf form. Matmuls accumulate in f32 (cuBLAS
-does for bf16); a bf16 product is rounded once, with the bias added in the
-GEMM epilogue where cuBLAS fuses it.
+does for bf16 and f16); a half-precision product is rounded once, with the
+bias added in the GEMM epilogue where cuBLAS fuses it.
 """
 
 from __future__ import annotations
@@ -26,10 +26,19 @@ from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w (+ b); w is (in, out)."""
+    """y = x @ w (+ b); w is (in, out). A bias of another dtype than ``x``
+    (the mixed policy's f32 biases on bf16 block matmuls) is added to the
+    f32 product before the one rounding to ``x.dtype``, as the JAX package
+    does: rounding it to ``x.dtype`` first gives another result."""
     if b is None:
         return torch.matmul(x, w)
-    y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    x2 = x.reshape(-1, x.shape[-1])
+    if b.dtype == x.dtype:
+        y = torch.addmm(b, x2, w)
+    elif x.is_cuda:
+        y = torch.addmm(b.float(), x2, w, out_dtype=torch.float32).to(x.dtype)
+    else:  # the CPU has no out_dtype GEMM: exact products of the upcast operands
+        y = torch.addmm(b.float(), x2.float(), w.float()).to(x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

@@ -97,7 +97,7 @@ def extract_depth(
     noise comes from ``runtime.seed``."""
     runtime = runtime or RuntimeConfig()
     device = runtime.resolved_device()
-    dtype = runtime.resolved_dtype()
+    dtype = runtime.image_dtype()
     configure_precision()
     pl = SplitProgressListener(progress)
     pl_model, pl_out = pl.split_range(0.9)
@@ -181,7 +181,7 @@ def extract_depth_batch(
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     runtime = runtime or RuntimeConfig()
     device = runtime.resolved_device()
-    dtype = runtime.resolved_dtype()
+    dtype = runtime.image_dtype()
     configure_precision()
     jobs = list(jobs)
     chunks = [jobs[i:i + batch_size] for i in range(0, len(jobs), batch_size)]

@@ -12,8 +12,19 @@ compact re-export indices as fallbacks. Every parameter of
 with the expected shape (else ``CheckpointBadShape``); extra keys are
 ignored.
 
-The FOV part is stored in f32 holding the compute dtype's values: the
-FOV network runs in f32 on weights rounded to the compute dtype.
+A checkpoint is read at canonical f32 (``read_checkpoint``) and then
+placed under the dtype policy (``place_params``), leaf for leaf the values
+of ``matrix_eyes_tpu/pt/loader.py::load_checkpoint(..., use_caches=False)``:
+
+* f32, bf16, f16: every leaf rounded to the compute dtype;
+* int8: the ViT block matmul weights quantized (``ops/quant.py``) from
+  their f16 roundings, as the JAX loader does so that its codes do not
+  depend on which of its caches exist; every other leaf bf16(f16(x));
+* mixed: the block matmul weights bf16(x), every other leaf the
+  checkpoint's own f32 (``ops/mixed.py``).
+
+The FOV part is stored in f32 holding the policy's values (int8 codes stay
+int8): the FOV network runs in f32.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import torch
 from matrix_eyes_tpu_torch.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
 from matrix_eyes_tpu_torch.config import ModelConfig
 from matrix_eyes_tpu_torch.models.spec import param_spec, tree_leaves, tree_map
+from matrix_eyes_tpu_torch.ops.mixed import cast_params_mixed
+from matrix_eyes_tpu_torch.ops.quant import quantize_params
 
 PARTS = ("encoder", "decoder", "head", "fov")
 
@@ -280,29 +293,69 @@ def _at(tree, path: Tuple):
     return tree
 
 
-def _to_torch(params: Dict[str, Any], device, dtype: torch.dtype) -> Dict[str, Any]:
-    def leaf(path, arr):
-        t = torch.tensor(np.asarray(arr, np.float32), device=device).to(dtype)
-        return t.float() if path[0] == "fov" else t
+def _check_policy(dtype: torch.dtype, quantize_int8: bool, mixed_bf16: bool) -> None:
+    if quantize_int8 and dtype != torch.bfloat16:
+        raise LoaderError(f"quantize_int8 requires the bf16 compute dtype, got {dtype}")
+    if mixed_bf16:
+        if quantize_int8:
+            raise LoaderError("mixed_bf16 and quantize_int8 are mutually exclusive")
+        if dtype != torch.bfloat16:
+            raise LoaderError(f"mixed_bf16 requires the bf16 compute dtype, got {dtype}")
 
-    return tree_map(leaf, params)
+
+def place_params(params: Dict[str, Any], device, dtype: torch.dtype = torch.float32, *,
+                 quantize_int8: bool = False, mixed_bf16: bool = False) -> Dict[str, Any]:
+    """The parameter tree of a dtype policy on ``device`` from a canonical
+    f32 tree (numpy arrays or tensors): ``dtype`` alone (f32, bf16, f16),
+    or bf16 with ``quantize_int8`` or ``mixed_bf16`` (module docstring)."""
+    _check_policy(dtype, quantize_int8, mixed_bf16)
+
+    def leaf(_path, arr):
+        t = arr if isinstance(arr, torch.Tensor) else torch.tensor(np.asarray(arr, np.float32))
+        t = t.to(device=device, dtype=torch.float32)
+        return t if mixed_bf16 else t.to(torch.float16 if quantize_int8 else dtype)
+
+    tree = tree_map(leaf, params)
+    if mixed_bf16:
+        tree = cast_params_mixed(tree)
+    if quantize_int8:
+        tree = tree_map(lambda _p, t: t.bfloat16() if t.dtype == torch.float16 else t,
+                        quantize_params(tree))
+    if "fov" in tree:
+        tree["fov"] = tree_map(lambda _p, t: t.float() if t.is_floating_point() else t,
+                               tree["fov"])
+    return tree
 
 
 def from_jax_params(cfg: ModelConfig, params_np: Dict[str, Any], device,
-                    dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """The port's parameter tree from the JAX package's (as returned by
-    ``convert_state_dict`` or ``models.init.init_params``, leaves converted
-    to numpy): the layouts are the same, so this is a validated copy."""
+                    dtype: torch.dtype = torch.float32, *, quantize_int8: bool = False,
+                    mixed_bf16: bool = False) -> Dict[str, Any]:
+    """The port's parameter tree from the JAX package's canonical f32 tree
+    (as returned by ``convert_state_dict`` or ``models.init.init_params``,
+    leaves converted to numpy), under a dtype policy: the layouts are the
+    same, so this is a validated copy."""
     _check_shapes(cfg, params_np)
-    return _to_torch(params_np, device, dtype)
+    return place_params(params_np, device, dtype, quantize_int8=quantize_int8,
+                        mixed_bf16=mixed_bf16)
 
 
 def load_checkpoint(path: str, dtype: torch.dtype = torch.float32, device="cpu",
-                    parts: Sequence[str] = PARTS,
+                    parts: Sequence[str] = PARTS, cfg: Optional[ModelConfig] = None, *,
+                    quantize_int8: bool = False,
+                    mixed_bf16: bool = False) -> Tuple[ModelConfig, Dict[str, Any]]:
+    """Read ``depth_pro.pt`` (``read_checkpoint``) and return (cfg, params)
+    on ``device`` under the dtype policy (``place_params``)."""
+    _check_policy(dtype, quantize_int8, mixed_bf16)
+    cfg, params = read_checkpoint(path, parts, cfg)
+    return cfg, place_params(params, device, dtype, quantize_int8=quantize_int8,
+                             mixed_bf16=mixed_bf16)
+
+
+def read_checkpoint(path: str, parts: Sequence[str] = PARTS,
                     cfg: Optional[ModelConfig] = None) -> Tuple[ModelConfig, Dict[str, Any]]:
     """Read ``depth_pro.pt`` (``torch.load(weights_only=True)``), infer the
-    config from its shapes unless ``cfg`` is given, and return (cfg,
-    params) on ``device``."""
+    config from its shapes unless ``cfg`` is given, and return (cfg, the
+    parameter tree of ``parts`` as f32 numpy arrays)."""
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     except FileNotFoundError:
@@ -314,4 +367,4 @@ def load_checkpoint(path: str, dtype: torch.dtype = torch.float32, device="cpu",
     flat = {k: v.float().numpy() for k, v in sd.items()
             if isinstance(v, torch.Tensor) and v.is_floating_point()}
     cfg = cfg or infer_config(flat)
-    return cfg, _to_torch(convert_state_dict(cfg, flat, parts), device, dtype)
+    return cfg, convert_state_dict(cfg, flat, parts)

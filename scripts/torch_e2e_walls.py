@@ -100,7 +100,7 @@ def _batch(params, src, out_dir: str) -> dict:
     res["one_photo_stages_s"] = stages[1:]
     del runtime
 
-    def weights(path, dtype, device, parts=convert.PARTS, cfg=None):
+    def weights(path, dtype, device, parts=convert.PARTS, cfg=None, **_policy):
         return DEPTH_PRO, {part: params[part] for part in parts}
 
     convert.load_checkpoint = api.load_checkpoint = weights

@@ -3,7 +3,7 @@
 shapes of ``chip_smoke.py``'s phase 3 (its lists, imported from this
 checkout), on one CUDA card; several source trees compared in one call.
 
-    python3 scripts/torch_kernel_times.py [--dtype f32|bf16] TREE [TREE ...]
+    python3 scripts/torch_kernel_times.py [--dtype f32|bf16|f16] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one, another unpacked with ``git archive``); the trees run in the order
@@ -77,7 +77,7 @@ def child(tree: str, reps: int, dtype: str) -> dict:
     configure_precision()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
     def sdpa(q, k, v, scale, n_valid):
         nv = q.shape[2] if n_valid is None else n_valid
@@ -161,7 +161,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", default=["."])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--dtype", choices=("f32", "bf16"), help="only the rows of this dtype")
+    ap.add_argument("--dtype", choices=("f32", "bf16", "f16"), help="only the rows of this dtype")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -2,16 +2,18 @@
 """Device time of the PyTorch port's warm DEPTH_PRO forward, per forward and
 per kernel, on one CUDA card; several source trees compared in one call.
 
-    python3 scripts/torch_profile_forward.py [--dtype f32|bf16] TREE [TREE ...]
+    python3 scripts/torch_profile_forward.py [--dtype f32|bf16|f16|mixed|int8] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this
 one, another unpacked with ``git archive``). The trees run in the order
 given, each in its own process (they hold packages of the same name), so
 ``build/parent . . build/parent`` times parent, change, change, parent on
-one card. Each run: random DEPTH_PRO weights from seed 0 in ``--dtype``
-(bf16 by default, the card's default; ``--dtype f32`` is the CLI's
-``--dtype f32``), ``--batch`` random 1536^2 inputs in that dtype (one
-forward over the batch, as ``--batch-size`` runs it), two untimed
+one card. Each run: random DEPTH_PRO weights from seed 0 under the CLI's
+``--dtype`` policy (bf16 by default, the card's default; f16, mixed and
+int8 place the seed's f32 weights as the loader does,
+``pt.convert.place_params``), ``--batch`` random 1536^2 inputs in the
+policy's image dtype (one forward over the batch, as ``--batch-size`` runs
+it), two untimed
 forwards (they build the kernels), the wall of ``--reps`` forwards
 between CUDA events, then ``--profiled`` forwards
 under ``torch.profiler`` for the device time of every kernel. The
@@ -40,7 +42,10 @@ def _group(name: str) -> str:
         if key in name:
             return key
     low = name.lower()
-    if "gemm" in low or "xmma" in low or "cutlass" in low or "cublas" in low:
+    if "gemm" in low and ("_s8" in low or "imma" in low):
+        return "cuBLAS int8 GEMM"
+    # nvjet_*: cuBLAS's Hopper GEMM kernels (their names do not say gemm)
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "cuBLAS GEMM"
     if "conv" in low or "cudnn" in low:
         return "cuDNN conv (FOV)"
@@ -61,11 +66,23 @@ def child(tree: str, reps: int, profiled: int, dtype_name: str, batch: int = 1) 
     configure_precision()
     dev = torch.device("cuda", 0)
     cfg = DEPTH_PRO
-    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dtype_name in ("bf16", "f32"):  # the form every tree of the port takes
+        dtype = image_dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+        params = init_params(cfg, gen, dev, dtype)
+    else:
+        from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype_policy
+        from matrix_eyes_tpu_torch.pt.convert import place_params
+
+        dtype, q8, mixed = parse_dtype_policy(dtype_name)
+        image_dtype = RuntimeConfig(dtype, device=dev, quantize_int8=q8,
+                                    mixed_bf16=mixed).image_dtype()
+        params = place_params(init_params(cfg, gen, dev, torch.float32), dev, dtype,
+                              quantize_int8=q8, mixed_bf16=mixed)
+        torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(1)
     img = (torch.rand(batch, cfg.img_size, cfg.img_size, 3, device=dev, generator=gen) * 2 - 1)
-    img = img.to(dtype)
+    img = img.to(image_dtype)
 
     def forward():
         with torch.no_grad():
@@ -114,7 +131,7 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", default=["."])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profiled", type=int, default=3)
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--dtype", choices=("bf16", "f32", "f16", "mixed", "int8"), default="bf16")
     ap.add_argument("--batch", type=int, default=1, help="photos per forward")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -303,7 +303,7 @@ def photos(tmp_path_factory):
 
 def test_session_dtype_and_device():
     with pytest.raises(ValueError, match="Unsupported dtype"):
-        MatrixEyes("unused.pt", dtype="int8", device="cpu")
+        MatrixEyes("unused.pt", dtype="int4", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(NoCudaDevice):
             MatrixEyes("unused.pt")

@@ -133,7 +133,7 @@ def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     ["a.jpg", "b.png", "c.png"],                   # unexpected positional
     ["--focal-length", "a.jpg", "b.png"],          # flag without value
     ["--focal-length=abc", "a.jpg", "b.png"],      # bad value
-    ["--dtype=int8", "a.jpg", "b.png"],            # dtype policy not ported
+    ["--dtype=int4", "a.jpg", "b.png"],            # unknown dtype
     ["--devices=2", "a.jpg", "b.png"],             # flag not ported
     ["--mesh=bogus", "a.jpg", "b.obj"],            # unknown vertex mode
     ["--batch-size=0", "a.jpg", "b.png"],          # batch size below 1
@@ -213,7 +213,7 @@ def test_port_imports_no_jax():
             "for name in ('cli', 'api', 'timings', 'output.png', 'output.mesh',\n"
             "             'output.writers', 'output.rust_format', 'errors', 'progress',\n"
             "             'io.image', 'ops.viridis_data', 'native.lanczos',\n"
-            "             'native.pngwriter', 'native.meshwriter'):\n"
+            "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed'):\n"
             "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"
