@@ -75,13 +75,37 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    against the CPU (plain versions) from the same canonical weights: the
    leaves placed on the card equal those placed on the CPU bit for bit
    (int8 codes and scales included), canonical inverse depth and FOV
-   within 5e-3 of max |ref| (f16) and 2e-2 (mixed, int8).
+   within 5e-3 of max |ref| (f16) and 2e-2 (mixed, int8);
+14. the HTTP server (``serve.create_server`` over ``MatrixEyes`` with the
+   phase-4 weights, the phase-4 photo as a JPEG body): /healthz; at
+   --max-batch=1 the depth-map PNG, the compact stereogram (no linker_scan
+   launch) and the PLY equal ``MatrixEyes.process`` of the same file byte
+   for byte, /v1/depth ``MatrixEyes.inverse_depth`` bit for bit; at
+   --max-batch=4, 8 concurrent /v1/depth requests over four photos, with a
+   focal length each within the bf16 gate of its one-photo forward, with
+   the FOV head each nearest its own photo's answer (clamp flips, phase
+   9), with at least one forward at batch 4 (attention launches at B=140);
+   then
+   ``scripts/torch_serve_burst.py``: 16 requests at concurrency 8,
+   --max-batch=4 against 1, requests/s, p50/p95 latency and one idle
+   request's latency, with the outputs on the default stream (the
+   server's) and again on a stream of their own;
+15. the weight caches: ``cli.main(["--convert-checkpoints", ...])`` cold
+   under bf16 at full width (a stand-in .pt gives the stamp, the reader
+   returns phase 4's canonical f32 tree) writes the port's caches under
+   build/, a warm run with the reader made to raise loads from them alone,
+   and its leaves on the card equal the CPU's placement of the tree's f16
+   convention bit for bit; cold and warm walls and the cache bytes; then
+   int8 and mixed the same way (full width when the disk has 16 GiB free,
+   else MID); the caches are deleted; a ``debug.compare_dumps`` table of
+   the card against the CPU at MID, f32.
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the ten paths (depth-map PNG, the same in f32, compact
-PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4 directory,
-the depth-map PNG under --dtype f16, mixed and int8),
+count on each of the thirteen paths (depth-map PNG, the same in f32,
+compact PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4
+directory, the depth-map PNG under --dtype f16, mixed and int8, the served
+depth-map PNG, the eight batched /v1/depth requests, and the warm start),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
@@ -95,6 +119,7 @@ port loaded jax or any module of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -236,8 +261,9 @@ def counted_run(fn):
     """Run fn with every launch counter set to 0 just before it; return its
     result, the counts just after ({kernel: launches}) and conv3x3's
     launches by shape ({(B, H, W, Cin, Cout, dtype, relu_in, residuals,
-    bias): launches}). attention_qkv's launches by dtype stay on the
-    wrapper (``launches_by_dtype``), set to 0 here as well."""
+    bias): launches}). attention_qkv's launches by dtype and by batch stay
+    on the wrapper (``launches_by_dtype``, ``launches_by_batch``), set to 0
+    here as well."""
     import torch
 
     wrappers = kernel_wrappers()
@@ -245,6 +271,7 @@ def counted_run(fn):
         w.launches = 0
     wrappers["conv3x3"].launches_by_shape.clear()
     wrappers["attention_qkv"].launches_by_dtype.clear()
+    wrappers["attention_qkv"].launches_by_batch.clear()
     result = fn()
     torch.cuda.synchronize()
     return (result, {name: w.launches for name, w in wrappers.items()},
@@ -899,30 +926,39 @@ def phase_mesh(dev, params, src, photo: str) -> dict:
     return colors_counts
 
 
-def phase_batch(dev, params, photos: list) -> dict:
-    """The batched path through the CLI and the library session, the CLI's
-    checkpoint reader answered with the phase-4 weights; returns the batch-4
-    directory run's launch counts."""
+@contextlib.contextmanager
+def answered_with(params):
+    """The loader of the CLI and of ``MatrixEyes`` answered with ``params``,
+    the phase-4 weights (bf16 on the card): the repository holds no trained
+    checkpoint."""
     import torch
 
     from matrix_eyes_tpu_torch import api
     from matrix_eyes_tpu_torch.config import DEPTH_PRO
-    from matrix_eyes_tpu_torch.pt import convert
+    from matrix_eyes_tpu_torch.pt import loader
 
-    def phase4_weights(path, dtype, device, parts=convert.PARTS, cfg=None,
-                       quantize_int8=False, mixed_bf16=False):
+    def phase4_weights(path, dtype, device, convert_checkpoints=False, parts=loader.PARTS,
+                       cfg=None, quantize_int8=False, mixed_bf16=False):
         require(dtype == torch.bfloat16 and torch.device(device).type == "cuda"
-                and not quantize_int8 and not mixed_bf16,
+                and not quantize_int8 and not mixed_bf16 and not convert_checkpoints,
                 f"checkpoint asked for {dtype} on {device} (int8 {quantize_int8}, mixed "
-                f"{mixed_bf16})")
+                f"{mixed_bf16}, convert {convert_checkpoints})")
         return DEPTH_PRO, {part: params[part] for part in parts}
 
-    real_load = convert.load_checkpoint
-    convert.load_checkpoint = api.load_checkpoint = phase4_weights
+    real_load = loader.load_checkpoint
+    loader.load_checkpoint = api.load_checkpoint = phase4_weights
     try:
-        return _batch_runs(dev, params, photos)
+        yield
     finally:
-        convert.load_checkpoint = api.load_checkpoint = real_load
+        loader.load_checkpoint = api.load_checkpoint = real_load
+
+
+def phase_batch(dev, params, photos: list) -> dict:
+    """The batched path through the CLI and the library session, the CLI's
+    checkpoint reader answered with the phase-4 weights; returns the batch-4
+    directory run's launch counts."""
+    with answered_with(params):
+        return _batch_runs(dev, params, photos)
 
 
 def _batch_runs(dev, params, photos: list) -> dict:
@@ -1053,13 +1089,13 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig, parse_dtype_policy
     from matrix_eyes_tpu_torch.models import depth_pro
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
-    from matrix_eyes_tpu_torch.pt import convert
+    from matrix_eyes_tpu_torch.pt import convert, loader
 
     cfg = DEPTH_PRO
     vit_dtype, conv_dtype = (getattr(torch, n) for n in POLICY_DTYPES[policy])
     out = os.path.join(OUT_DIR, f"chip_smoke_{policy}.png")
     loaded = {}
-    real_read, real_load = convert.read_checkpoint, convert.load_checkpoint
+    real_read, real_load = convert.read_checkpoint, loader.load_checkpoint
 
     def read(path, parts=convert.PARTS, cfg=None):
         return DEPTH_PRO, {part: canonical[part] for part in parts}
@@ -1068,7 +1104,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
         loaded["cfg"], loaded["params"] = real_load(*args, **kwargs)
         return loaded["cfg"], loaded["params"]
 
-    convert.read_checkpoint, convert.load_checkpoint = read, load
+    convert.read_checkpoint, loader.load_checkpoint = read, load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1083,7 +1119,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
             by_dtype.append(dict(attention_qkv.launches_by_dtype))
             shapes.append(sh)
     finally:
-        convert.read_checkpoint, convert.load_checkpoint = real_read, real_load
+        convert.read_checkpoint, loader.load_checkpoint = real_read, real_load
     peak = torch.cuda.max_memory_allocated()
     print(f"[{phase}] cli --dtype={policy} wall s: first {walls[0]:.3f} (the policy's "
           f"conversion included), second {walls[1]:.3f}; launches per run: {counts}; "
@@ -1139,11 +1175,6 @@ def phase_policies_mid(dev) -> None:
     from matrix_eyes_tpu_torch.models.spec import tree_leaves, tree_map
     from matrix_eyes_tpu_torch.pt.convert import place_params
 
-    def _at(tree, path):
-        for k in path:
-            tree = tree[k]
-        return tree
-
     cfg = MID
     canonical = init_params(cfg, torch.Generator().manual_seed(3), "cpu", torch.float32)
     img = np.random.RandomState(5).uniform(-1, 1, (1, cfg.img_size, cfg.img_size, 3))
@@ -1178,6 +1209,294 @@ def phase_policies_mid(dev) -> None:
               f"max_rel={can_err:.3e}, fov {fov_g.item():.6f} vs {fov_c.item():.6f} deg (rel "
               f"{fov_err:.3e}); gate {rel:g} {'ok' if ok else 'FAIL'}")
         require(ok, f"--dtype={policy} at MID: the card disagrees with the CPU")
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _http(url: str, body=None) -> tuple:
+    """(status, content type, body bytes) of a GET, or of a POST of ``body``."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+@contextlib.contextmanager
+def serving(session, max_batch: int):
+    """``serve.create_server`` over ``session`` on an ephemeral port, in a
+    thread; yields its base URL and stops it after."""
+    import threading
+
+    from matrix_eyes_tpu_torch import serve
+
+    server = serve.create_server(session, port=0, max_inflight=16, max_batch=max_batch)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        require(not thread.is_alive(), "the server thread did not stop")
+
+
+def phase_serve(dev, canonical: dict, src, photos: list) -> tuple:
+    """The HTTP server at full DEPTH_PRO width with the phase-4 weights and
+    the phase-4 photo as a JPEG body: /healthz; at --max-batch=1 the
+    depth-map PNG, the compact stereogram and the PLY equal
+    ``MatrixEyes.process`` of the same file byte for byte, and /v1/depth
+    ``MatrixEyes.inverse_depth`` bit for bit; at --max-batch=4, 8 concurrent
+    /v1/depth requests over four photos against their one-photo forwards
+    (with a focal length, and with the FOV head), at least one forward at
+    batch 4; then
+    scripts/torch_serve_burst.py. Returns the launch counts of the depth-map
+    request and of the batched requests."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from matrix_eyes_tpu_torch import api
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_serve_burst
+
+    params = place_params(canonical, dev, torch.bfloat16)  # phase 4's weights
+    photo = os.path.join(OUT_DIR, "serve_photo.jpg")
+    Image.fromarray(src.rgb).save(photo, quality=95)
+    with open(photo, "rb") as f:
+        body = f.read()
+    with answered_with(params):
+        me = api.MatrixEyes("phase-4 weights")
+    expect = {"attention_qkv": 72, "conv3x3": 24, "linker_scan": 0, "attention_flash": 0}
+    with serving(me, 1) as url:
+        code, ctype, health = _http(url + "/healthz")
+        health = json.loads(health)
+        print(f"[14] /healthz: {health}")
+        require(code == 200 and ctype == "application/json" and set(health) == {
+            "status", "model", "img_size", "dtype", "weight_policy", "default_dtype_policy"}
+            and (health["img_size"], health["dtype"], health["weight_policy"]) == (
+                1536, "bfloat16", "plain"), f"/healthz answered {code} {health}")
+        serve_counts = None
+        for fmt, fname, image_format in (("depthmap", "serve_lib.png", "depthmap"),
+                                         ("stereogram", "serve_lib_stereo.png", "stereogram"),
+                                         ("ply", "serve_lib.ply", "depthmap")):
+            t0 = time.perf_counter()
+            (code, ctype, got), counts, _ = counted_run(
+                lambda: _http(url + f"/v1/process?format={fmt}", body))
+            wall = time.perf_counter() - t0
+            lib = os.path.join(OUT_DIR, fname)
+            me.process(photo, lib, image_format=image_format)
+            with open(lib, "rb") as f:
+                same = f.read() == got
+            print(f"[14] /v1/process?format={fmt}: {code} {ctype}, {len(got)} bytes in "
+                  f"{wall:.3f} s; launches {counts}; equals MatrixEyes.process: {same}")
+            require(code == 200 and counts == expect, f"{fmt}: {code}, launches {counts}")
+            require(same, f"the served {fmt} differs from MatrixEyes.process of the same file")
+            if fmt == "depthmap":
+                serve_counts = counts
+                require(_png_size(lib) == (4032, 3024), f"the depth map is {_png_size(lib)}")
+        code, ctype, got = _http(url + "/v1/depth", body)
+        inv = np.load(io.BytesIO(got))
+        ref = me.inverse_depth(photo)
+        print(f"[14] /v1/depth: {code} {ctype} {inv.shape} {inv.dtype}; equals "
+              f"MatrixEyes.inverse_depth bit for bit: {np.array_equal(inv, ref)}")
+        require(code == 200 and np.array_equal(inv, ref),
+                "/v1/depth differs from MatrixEyes.inverse_depth")
+
+    # four photos, eight concurrent requests, against one-photo forwards:
+    # with a focal length the bf16 gate holds pixel for pixel; with the FOV
+    # head, whose tiny angle scales the random weights' inverse depth
+    # ~1700x, pixels whose canonical depth sits near zero can flip across
+    # the DepthMap's clamp [0.004, 10] under the batch's bf16 rounding (as
+    # in phase 9), so those responses are held to being nearest their own
+    # photo's answer
+    bodies = []
+    for p in photos[:4]:
+        with open(p, "rb") as f:
+            bodies.append(f.read())
+    batch_counts = None
+    for query, focal in (("?focal-length=35", 35.0), ("", None)):
+        refs = [me.inverse_depth(p, focal_length_35mm=focal) for p in photos[:4]]
+        with serving(me, 4) as url:
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                t0 = time.perf_counter()
+                results, counts, _ = counted_run(lambda: list(pool.map(
+                    lambda i: _http(url + "/v1/depth" + query, bodies[i % 4]), range(8))))
+                wall = time.perf_counter() - t0
+            by_batch = dict(attention_qkv.launches_by_batch)
+        batch_counts = batch_counts or counts
+        print(f"[14] --max-batch=4, /v1/depth{query or ' (FOV head)'}: 8 concurrent requests "
+              f"over 4 photos in {wall:.3f} s; launches {counts}; attention_qkv launches by "
+              f"batch {by_batch}")
+        ok = True
+        for i, (code, _ctype, got) in enumerate(results):
+            got, ref = np.load(io.BytesIO(got)), refs[i % 4]
+            err, scale = np.abs(got - ref), float(np.abs(ref).max())
+            nearest = int(np.argmin([np.abs(got - r).mean() for r in refs]))
+            beyond = int((err > BF16_REL * scale).sum())
+            print(f"[14] request {i} ({os.path.basename(photos[i % 4])}): max_abs="
+                  f"{err.max():.3e} ({err.max() / scale:.2e} of max ref), mean_abs="
+                  f"{err.mean():.3e}, pixels beyond 2e-2 of max ref {beyond} of {err.size}; "
+                  f"nearest reference: photo {nearest}")
+            ok = ok and code == 200 and bool(np.isfinite(got).all()) and nearest == i % 4
+            if focal is not None:
+                ok = ok and float(err.max()) <= BF16_REL * scale
+        require(ok, f"/v1/depth{query}: a batched response left its gate")
+        require(by_batch.get(4 * 35, 0) > 0, f"no forward ran at batch 4: {by_batch}")
+
+    report = torch_serve_burst.main([
+        "--photo", photo, "--max-batch", "4", "--requests", "16", "--concurrency", "8",
+        "--compare-output-streams", "--out", os.path.join(OUT_DIR, "serve_burst.json")],
+        session=me)
+    for stream, runs in (("default", report), ("own", report["own_output_stream"])):
+        for mode in ("batched", "serialized"):
+            r = runs[mode]
+            print(f"[14] burst, outputs on the {stream} stream, --max-batch={r['max_batch']}: "
+                  f"{r['requests_per_s']:.3f} requests/s ({r['requests']} at concurrency "
+                  f"{r['concurrency']}, {r['wall_s']:.3f} s); latency p50 "
+                  f"{r['latency_s']['p50']:.3f} s, p95 {r['latency_s']['p95']:.3f} s, max "
+                  f"{r['latency_s']['max']:.3f} s; idle request "
+                  f"{r['idle_latency_s']['median']:.3f} s (runs "
+                  f"{[round(x, 3) for x in r['idle_latency_s']['runs']]}); forwards' batch "
+                  f"sizes {r['batch_sizes']}")
+        print(f"[14] burst, outputs on the {stream} stream: --max-batch=4 / 1 = "
+              f"{runs['coalescing_speedup']:.3f}")
+    del me, params
+    torch.cuda.empty_cache()
+    return serve_counts, batch_counts
+
+
+def _warm_start_policy(cfg, canonical: dict, policy: str, pt: str, photo: str) -> dict:
+    """``cli.main`` cold with --convert-checkpoints, then warm with the reader
+    made to raise, under ``policy``; the warm run's leaves on the card
+    against the CPU's placement of the same canonical tree (its f16
+    convention; exact for mixed). Returns the warm run's launch counts."""
+    import torch
+
+    from matrix_eyes_tpu_torch import cli
+    from matrix_eyes_tpu_torch.config import parse_dtype_policy
+    from matrix_eyes_tpu_torch.models.spec import tree_leaves, tree_map
+    from matrix_eyes_tpu_torch.pt import convert, loader
+
+    reads, loaded = [], {}
+
+    def read(path, parts=convert.PARTS, cfg_=None):
+        reads.append(tuple(parts))
+        return cfg, {part: canonical[part] for part in parts}
+
+    def refuse(*_a, **_k):
+        raise RuntimeError("the warm start read the .pt")
+
+    real_read, real_load = convert.read_checkpoint, loader.load_checkpoint
+
+    def load(*a, **k):
+        result = real_load(*a, **k)
+        loaded["params"] = result[1]
+        return result
+
+    flags = [f"--checkpoint-path={pt}"] + ([f"--dtype={policy}"] if policy != "bf16" else [])
+    walls = {}
+    loader.load_checkpoint = load
+    try:
+        for run, reader in (("cold", read), ("warm", refuse)):
+            convert.read_checkpoint = reader
+            out = os.path.join(OUT_DIR, f"warm_start_{policy}_{run}.png")
+            argv = (["--convert-checkpoints"] if run == "cold" else []) + flags + [photo, out]
+            t0 = time.perf_counter()
+            rc, counts, _ = counted_run(lambda: cli.main(argv))
+            walls[run] = time.perf_counter() - t0
+            require(rc == 0, f"cli.main({argv}) exited {rc}")
+            require(_png_size(out) == _png_size(photo), f"{out} is {_png_size(out)}")
+    finally:
+        convert.read_checkpoint, loader.load_checkpoint = real_read, real_load
+    d = os.path.dirname(pt)
+    files = sorted(n for n in os.listdir(d) if ".torch." in n or "-torch-" in n)
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for n in files)
+    dtype, q8, mixed = parse_dtype_policy(policy)
+    host = tree_map(lambda _p, t: t.cpu() if mixed else t.cpu().to(torch.float16), canonical)
+    want = convert.place_params(host, "cpu", dtype, quantize_int8=q8, mixed_bf16=mixed)
+    got = loaded.pop("params")
+    differ = []
+
+    def check(path, w):
+        g = _at(got, path)
+        if w.dtype != g.dtype or not torch.equal(w, g.cpu()):
+            differ.append(".".join(map(str, path)))
+
+    tree_map(check, want)
+    same = not differ and len(tree_leaves(want)) == len(tree_leaves(got))
+    print(f"[15] --dtype={policy} at {'DEPTH_PRO' if cfg.depth == 24 else 'MID'}: cold "
+          f"(--convert-checkpoints) {walls['cold']:.3f} s, warm {walls['warm']:.3f} s from "
+          f"cli.main to the PNG; the cold run read the .pt {len(reads)} time(s), the warm run "
+          f"none; launches of the warm run {counts}; cache files {files}, {nbytes} bytes "
+          f"({nbytes / 2**30:.3f} GiB); the warm leaves on the card equal the CPU's "
+          f"placement: {same} {differ[:6]}")
+    require(same, f"--dtype={policy}: the warm leaves differ from the CPU's placement")
+    return counts
+
+
+def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
+    """Warm start from the port's weight caches (``pt/loader.py``): a
+    stand-in .pt gives the stamp and the reader returns the canonical
+    weights; bf16 at full width, then int8 and mixed (full width when the
+    disk holds their caches, else MID); a ``compare_dumps`` table of the
+    card against the CPU at MID, f32. Deletes the caches at the end; returns
+    the warm bf16 run's launch counts."""
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch import debug
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, MID
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.models.spec import tree_map
+
+    d = os.path.join(OUT_DIR, "weight_caches")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    pt = os.path.join(d, "depth_pro.pt")
+    with open(pt, "wb") as f:  # the stamp; the reader returns the weights
+        f.write(b"stand-in for depth_pro.pt\n")
+    try:
+        counts = _warm_start_policy(DEPTH_PRO, canonical, "bf16", pt, photo)
+        free = shutil.disk_usage(d).free
+        full = free > 16 * 2**30  # ~1 GiB of int8 and ~2.4 GiB of mixed caches, and copies
+        print(f"[15] {free / 2**30:.1f} GiB free on the disk: int8 and mixed at "
+              f"{'full width' if full else 'MID'}")
+        cfg, tree, pt2 = DEPTH_PRO, canonical, pt
+        if not full:
+            cfg = MID
+            tree = init_params(MID, torch.Generator(device=dev).manual_seed(0), dev)
+            pt2 = os.path.join(d, "mid.pt")
+            with open(pt2, "wb") as f:
+                f.write(b"stand-in for a MID checkpoint\n")
+        for policy in ("int8", "mixed"):
+            _warm_start_policy(cfg, tree, policy, pt2, photo)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    cpu_params = init_params(MID, torch.Generator().manual_seed(3), "cpu", torch.float32)
+    gpu_params = tree_map(lambda _p, t: t.to(dev), cpu_params)
+    img = np.random.RandomState(5).uniform(-1, 1, (1, MID.img_size, MID.img_size, 3))
+    img = torch.from_numpy(img.astype(np.float32))
+    report = debug.compare_dumps(debug.dump_stages(MID, gpu_params, img.to(dev)),
+                                 debug.dump_stages(MID, cpu_params, img))
+    for stage, rel in report.items():
+        print(f"[15] compare_dumps, MID f32, card vs CPU: {stage:24s} {rel:.3e}")
+    require(len(report) == 12 and all(math.isfinite(v) for v in report.values()),
+            f"compare_dumps: stages missing or not finite: {report}")
+    return counts
 
 
 def main() -> int:
@@ -1220,9 +1539,11 @@ def main() -> int:
             dev, policy, phase, canonical, src, photos[0], inv_f32, bf16_gap, conv_rows)
         if policy == "f16":
             hot["conv3x3_f16"]["per_forward"] = per_forward
+    phase_policies_mid(dev)
+    by_path["serve"], by_path["serve_batch4"] = phase_serve(dev, canonical, src, photos)
+    by_path["warm_start"] = phase_warm_start(dev, canonical, photos[0])
     del canonical
     torch.cuda.empty_cache()
-    phase_policies_mid(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 

@@ -30,7 +30,7 @@ from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.models import depth_pro
 from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat, VertexMode
 from matrix_eyes_tpu_torch.pipeline import extract_depth_batch, forward_batch, preprocess_image
-from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
+from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
 
 Image = Union[str, np.ndarray, SourceImage]
 
@@ -41,10 +41,12 @@ class MatrixEyes:
     card and f32 on the CPU;
     ``seed``: stereogram noise; ``cfg``: the architecture, inferred from
     the checkpoint when None; ``device``: None for the card, "cpu" for the
-    CPU."""
+    CPU; ``convert_checkpoints``: write the weight caches beside the
+    checkpoint (``pt.loader``), which later sessions load from."""
 
     def __init__(self, checkpoint_path: str, dtype: Union[str, torch.dtype, None] = None,
-                 seed: int = 0, cfg: Optional[ModelConfig] = None, device=None):
+                 seed: int = 0, cfg: Optional[ModelConfig] = None, device=None,
+                 convert_checkpoints: bool = False):
         quantize_int8 = mixed_bf16 = False
         if isinstance(dtype, str):
             dtype, quantize_int8, mixed_bf16 = parse_dtype_policy(dtype)
@@ -53,8 +55,8 @@ class MatrixEyes:
         configure_precision()
         self.cfg, self.params = load_checkpoint(
             checkpoint_path, dtype=self.runtime.resolved_dtype(),
-            device=self.runtime.resolved_device(), cfg=cfg, quantize_int8=quantize_int8,
-            mixed_bf16=mixed_bf16)
+            device=self.runtime.resolved_device(), convert_checkpoints=convert_checkpoints,
+            cfg=cfg, quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
 
     # -- depth -------------------------------------------------------------
 

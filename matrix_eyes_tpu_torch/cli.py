@@ -10,9 +10,11 @@
 The port writes a viridis depth map, an autostereogram or an OBJ/PLY mesh,
 for one photo or (a directory source) for every photo of a directory,
 ``--batch-size`` photos per forward, under every dtype policy of the JAX
-package (``--dtype=f32|bf16|f16|int8|mixed``). Flags of the JAX package
-that the port does not run yet (``--devices``, ``--convert-checkpoints``,
-...) exit 2 with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
+package (``--dtype=f32|bf16|f16|int8|mixed``). ``--convert-checkpoints``
+writes the weight caches beside the checkpoint (``pt/loader.py``), which
+later runs load without reading the ``.pt``. Flags of the JAX package that
+the port does not run (``--devices``, ``--no-flash-attention``, ...) exit 2
+with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
 to stderr on exit.
 """
 
@@ -35,6 +37,7 @@ Arguments:
 Options:
       --focal-length=<FOCAL_LENGTH>       Focal length in 35mm equivalent
       --checkpoint-path=<CHECKPOINT_PATH> Path to checkpoint file [default: ./checkpoints/depth_pro.pt]
+      --convert-checkpoints               Convert checkpoints into a more efficient format [default: disabled]
       --image-output-format=<FORMAT>      Format for output [default: depthmap] [possible values: depthmap, stereogram]
       --resize-scale=<SCALE>              Custom scale for stereogram output [default: 1.0]
       --stereo-amplitude=<AMPLITUDE>      Custom scale for stereogram output [default: 0.0625]
@@ -45,7 +48,7 @@ Options:
       --help                              Print help"""
 
 # flags of the JAX package's CLI that the port does not run yet
-_NOT_PORTED = ("--convert-checkpoints", "--devices", "--no-flash-attention", "--profile")
+_NOT_PORTED = ("--devices", "--no-flash-attention", "--profile")
 
 
 @dataclass
@@ -59,6 +62,7 @@ class Args:
     dtype: Optional[str] = None
     seed: int = 0
     batch_size: int = 1
+    convert_checkpoints: bool = False
     img_src: str = ""
     img_out: str = ""
 
@@ -84,6 +88,9 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
 
     for arg in argv:
         if arg.startswith("--") and not args.img_src:
+            if arg == "--convert-checkpoints":
+                args.convert_checkpoints = True
+                continue
             if arg == "--help":
                 print(USAGE_INSTRUCTIONS, file=stdout)
                 raise SystemExit(0)
@@ -171,7 +178,7 @@ def run(args: Args, progress=None, device=None) -> None:
     from matrix_eyes_tpu_torch.io.image import load_source_image, probe_focal_length_35mm
     from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat, VertexMode
     from matrix_eyes_tpu_torch.pipeline import extract_depth, extract_depth_batch
-    from matrix_eyes_tpu_torch.pt.convert import load_checkpoint
+    from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
 
     dtype, quantize_int8, mixed_bf16 = (parse_dtype_policy(args.dtype) if args.dtype
                                         else (None, False, False))
@@ -193,7 +200,8 @@ def run(args: Args, progress=None, device=None) -> None:
     if progress is not None:
         progress.update_message("reading checkpoint")
     cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
-                                  device=runtime.resolved_device(), parts=parts,
+                                  device=runtime.resolved_device(),
+                                  convert_checkpoints=args.convert_checkpoints, parts=parts,
                                   quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
     options = dict(focal_length_35mm=args.focal_length,
                    image_format=ImageOutputFormat(args.output_format),

@@ -110,11 +110,13 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     _build.check_launch(rc, "attention_qkv")
     attention_qkv.launches += 1
     attention_qkv.launches_by_dtype[qkv.dtype] += 1
+    attention_qkv.launches_by_batch[B] += 1
     return out
 
 
 attention_qkv.launches = 0
 attention_qkv.launches_by_dtype = collections.Counter()
+attention_qkv.launches_by_batch = collections.Counter()  # B = 35 per photo in the patch ViT
 
 
 def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

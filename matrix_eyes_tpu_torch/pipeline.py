@@ -38,8 +38,10 @@ def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
                      device) -> torch.Tensor:
     """Lanczos3 resize to the model resolution, round back to u8 (the
     reference resizes the u8 image), scale to [0, 1], normalise with
-    mean = std = 0.5. Returns (1, S, S, 3) NHWC."""
-    x = torch.tensor(rgb_u8, device=device).float()
+    mean = std = 0.5. ``rgb_u8``: (H, W, 3) u8, numpy or a tensor already
+    on ``device`` (the server's upload). Returns (1, S, S, 3) NHWC."""
+    x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
+    x = x.to(device).float()
     x = to_u8(resize_lanczos3(x, img_size, img_size)).float()
     x = (x / 255.0 - 0.5) / 0.5
     return x[None].to(dtype)

@@ -103,7 +103,12 @@ def _batch(params, src, out_dir: str) -> dict:
     def weights(path, dtype, device, parts=convert.PARTS, cfg=None, **_policy):
         return DEPTH_PRO, {part: params[part] for part in parts}
 
+    # the CLI's loader: pt.loader where the tree has it, else pt.convert's
     convert.load_checkpoint = api.load_checkpoint = weights
+    if importlib.util.find_spec("matrix_eyes_tpu_torch.pt.loader") is not None:
+        from matrix_eyes_tpu_torch.pt import loader
+
+        loader.load_checkpoint = weights
     in_dir = os.path.dirname(photos[0])
 
     def run_dir(bs: int) -> float:

@@ -30,7 +30,7 @@ from matrix_eyes_tpu_torch.config import TINY, NoCudaDevice, RuntimeConfig
 from matrix_eyes_tpu_torch.errors import ReconstructionError
 from matrix_eyes_tpu_torch.models import depth_pro as tdepth_pro
 from matrix_eyes_tpu_torch.models.init import init_params
-from matrix_eyes_tpu_torch.pt import convert as tconvert
+from matrix_eyes_tpu_torch.pt import loader as tloader
 from matrix_eyes_tpu_torch.pt.convert import from_jax_params
 
 import torch_ref
@@ -135,13 +135,13 @@ def test_fov_weights_load_only_when_needed(ckpt, tmp_path, monkeypatch, all_exif
     out = tmp_path / "out"
     out.mkdir()
     seen = {}
-    real = tconvert.load_checkpoint
+    real = tloader.load_checkpoint
 
     def spy(*a, **k):
         seen["parts"] = tuple(k["parts"])
         return real(*a, **k)
 
-    monkeypatch.setattr(tconvert, "load_checkpoint", spy)
+    monkeypatch.setattr(tloader, "load_checkpoint", spy)
     assert _run([f"--checkpoint-path={ckpt}", "--batch-size=2", str(src), str(out)]) == 0
     assert ("fov" in seen["parts"]) == (not all_exif)
     assert (out / "img0.png").exists() and (out / "img1.png").exists()

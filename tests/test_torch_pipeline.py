@@ -152,8 +152,7 @@ def test_cli_bad_arguments_exit_2(argv):
     assert tcli.main(argv) == 2
 
 
-@pytest.mark.parametrize("flag", ["--convert-checkpoints", "--no-flash-attention",
-                                  "--profile=trace"])
+@pytest.mark.parametrize("flag", ["--no-flash-attention", "--profile=trace"])
 def test_cli_jax_only_flags_exit_2(flag):
     # the flags of the JAX package that the port does not run yet
     out, err = io.StringIO(), io.StringIO()
@@ -213,7 +212,8 @@ def test_port_imports_no_jax():
             "for name in ('cli', 'api', 'timings', 'output.png', 'output.mesh',\n"
             "             'output.writers', 'output.rust_format', 'errors', 'progress',\n"
             "             'io.image', 'ops.viridis_data', 'native.lanczos',\n"
-            "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed'):\n"
+            "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed',\n"
+            "             'serve', 'pt.loader', 'debug'):\n"
             "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"
