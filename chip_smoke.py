@@ -98,14 +98,30 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    convention bit for bit; cold and warm walls and the cache bytes; then
    int8 and mixed the same way (full width when the disk has 16 GiB free,
    else MID); the caches are deleted; a ``debug.compare_dumps`` table of
-   the card against the CPU at MID, f32.
+   the card against the CPU at MID, f32;
+16. multi-device (``parallel/``, ``--devices``) on the one card:
+   ``cli.main(["--devices=2", ...])`` exits 1 with the Device error; an
+   NCCL world of one rank (``parallel.launch``) gives phase 4's inverse
+   depth bit for bit from the phase-4 weights (written to build/ and
+   mapped by every rank, each moving only its cut to the card); gloo
+   ranks sharing the card run DEPTH_PRO bf16 at 1x2, 2x1 and 2x2: each
+   rank's launches (72 attention_qkv at its per-shard shapes, 24 conv3x3),
+   its collectives (144 f32 all-reduces under model 2, the patch merge's
+   all-gathers under data 2, none with a token axis), the inverse depth
+   within the bf16 gate of phase 4's and equal on every rank, and the
+   forward's wall, ranks time-sharing one card (no speed-up is measured
+   here); MID 2x2 on the card against the same mesh on the CPU under f32
+   (phase 6's tolerance) and int8 and mixed (phase 13's: the canonical
+   inverse depth and the FOV each within 2e-2); no rank loads jax. Phase 3 holds attention_qkv at the
+   per-shard shapes (``PER_SHARD_ATTENTION``).
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the thirteen paths (depth-map PNG, the same in f32,
+count on each of the seventeen paths (depth-map PNG, the same in f32,
 compact PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4
 directory, the depth-map PNG under --dtype f16, mixed and int8, the served
-depth-map PNG, the eight batched /v1/depth requests, and the warm start),
+depth-map PNG, the eight batched /v1/depth requests, the warm start, and
+rank 0's forward on the meshes NCCL 1x1, 1x2, 2x1 and 2x2),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
@@ -186,6 +202,19 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (1, 577, 16, 64, "f16", 500),      # the same, keys past n_valid masked
     (3, 70, 2, 8, "f16", None),        # TINY heads (CUDA cores), ragged N
 ]
+# per-shard attention shapes of the sharded meshes: (B, N, H, D, dtype, n_valid)
+PER_SHARD_ATTENTION = [
+    (35, 577, 8, 64, "bf16", None),   # patch ViT at 1x2 (model 2: 8 heads a rank)
+    (18, 577, 16, 64, "bf16", None),  # patch ViT at 2x1 (36 patches, 18 a rank)
+    (18, 577, 8, 64, "bf16", None),   # patch ViT at 2x2
+    (35, 577, 4, 64, "bf16", None),   # patch ViT at 1x4
+    (1, 577, 8, 64, "bf16", None),    # image ViT under model 2
+    (1, 577, 8, 64, "f32", None),     # FOV ViT under model 2 (f32)
+]
+ATTENTION_SHAPES += PER_SHARD_ATTENTION
+# a sharded forward's wall budget, seconds (gloo moves the f32 partial
+# products through host memory: ~4 GB a forward at 1x2)
+MESH_TIMEOUT = 300.0
 FLASH_SHAPES = [  # (B, H, N, D, dtype, n_valid, permuted views of one qkv buffer)
     (35, 16, 577, 64, "bf16", None, True),  # the patch ViT's shape
     (35, 16, 577, 64, "f32", None, True),   # the same under --dtype f32
@@ -272,6 +301,7 @@ def counted_run(fn):
     wrappers["conv3x3"].launches_by_shape.clear()
     wrappers["attention_qkv"].launches_by_dtype.clear()
     wrappers["attention_qkv"].launches_by_batch.clear()
+    wrappers["attention_qkv"].launches_by_shape.clear()
     result = fn()
     torch.cuda.synchronize()
     return (result, {name: w.launches for name, w in wrappers.items()},
@@ -494,6 +524,8 @@ def phase_kernels(dev) -> dict:
             hot["attention_qkv_batch4_f32"] = res
         if (B, N, dt, n_valid) == (35, 577, "f16", None):
             hot["attention_qkv_f16"] = res
+        if (B, N, H, D, dt, n_valid) in PER_SHARD_ATTENTION:
+            hot.setdefault("attention_qkv_per_shard", []).append(res)
         print(f"[3] attention {res['shape']}: max_abs={res['max_abs_err']:.3e} "
               f"max_rel={res['max_rel_err']:.3e} max_ref={res['max_ref']:.3e} "
               f"ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -627,6 +659,20 @@ def conv_per_forward(conv_rows: dict, by_shape: dict, dtype, phase: int) -> dict
     return per_forward
 
 
+def png_diff(a: str, b: str) -> tuple:
+    """(mean, 99.9th percentile, max) of |a - b| in u8 counts over the
+    pixels of two PNGs of one size (inf where the sizes differ)."""
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(a) as x, Image.open(b) as y:
+        x, y = np.asarray(x.convert("RGB"), np.int16), np.asarray(y.convert("RGB"), np.int16)
+    if x.shape != y.shape:
+        return math.inf, math.inf, math.inf
+    diff = np.abs(x - y)
+    return float(diff.mean()), float(np.percentile(diff, 99.9)), int(diff.max())
+
+
 def _png_size(path: str):
     with open(path, "rb") as f:
         head = f.read(24)
@@ -683,11 +729,23 @@ def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
     return counts[0], conv_shapes[0], inv
 
 
-def phase_main_path(dev) -> tuple:
+def synthetic_photo():
+    """The phase-4 photo: a seeded 4032x3024 gradient with noise, no focal
+    length (a ``SourceImage``)."""
     import numpy as np
-    import torch
 
     from matrix_eyes_tpu_torch.io.image import SourceImage
+
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:3024, 0:4032]
+    rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
+    rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
+    return SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
+
+
+def phase_main_path(dev) -> tuple:
+    import torch
+
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
     from matrix_eyes_tpu_torch.models.init import init_params
 
@@ -697,11 +755,7 @@ def phase_main_path(dev) -> tuple:
     params = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev, dtype)
     torch.cuda.synchronize()
     print(f"[4] random DEPTH_PRO weights on the card in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(0)
-    yy, xx = np.mgrid[0:3024, 0:4032]
-    rgb = np.stack([xx * 255 // 4031, yy * 255 // 3023, (xx + yy) * 255 // 7054], -1)
-    rgb = (rgb + rng.randint(-20, 21, rgb.shape)).clip(0, 255).astype(np.uint8)
-    src = SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
+    src = synthetic_photo()
     counts, conv_shapes, inv = depth_map_runs(dev, params, src, dtype, 4, "depthmap")
     return counts, conv_shapes, inv, params, src
 
@@ -1042,13 +1096,10 @@ def _batch_runs(dev, params, photos: list) -> dict:
     run_dir(1)
     for p in photos:
         name = os.path.splitext(os.path.basename(p))[0] + ".png"
-        with Image.open(os.path.join(outs[4], name)) as a, \
-                Image.open(os.path.join(outs[1], name)) as b:
-            diff = np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16))
-        print(f"[9] {name}: --batch-size=4 vs 1 PNG pixels mean |diff| {diff.mean():.4f} "
-              f"counts, 99.9th percentile {np.percentile(diff, 99.9):.0f}, max "
-              f"{int(diff.max())}")
-        require(diff.mean() <= PNG_MEAN_COUNTS,
+        mean, p999, top = png_diff(os.path.join(outs[4], name), os.path.join(outs[1], name))
+        print(f"[9] {name}: --batch-size=4 vs 1 PNG pixels mean |diff| {mean:.4f} "
+              f"counts, 99.9th percentile {p999:.0f}, max {top}")
+        require(mean <= PNG_MEAN_COUNTS,
                 f"{name}: the batch-4 PNG leaves the gate of the batch-1 PNG (mean |diff| <= "
                 f"{PNG_MEAN_COUNTS} counts)")
     walls = {4: [], 1: []}
@@ -1072,7 +1123,7 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def _gap(a, ref) -> float:
+def rel_gap(a, ref) -> float:
     """max |a - ref| over max |ref|"""
     return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
@@ -1145,7 +1196,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
     inv, fov_deg = depth_pro.forward_with_fov(cfg, params, img)
     require(bool(torch.isfinite(inv).all()) and bool(torch.isfinite(fov_deg).all()),
             f"--dtype={policy}: non-finite inverse depth or FOV")
-    gap = _gap(inv, ref_inv)
+    gap = rel_gap(inv, ref_inv)
     weights = _tree_bytes(params)
     print(f"[{phase}] --dtype={policy}: {out} {size[0]}x{size[1]}; weights {weights} bytes "
           f"({weights / 2**30:.3f} GiB); peak device memory {peak / 2**30:.2f} GiB, "
@@ -1201,7 +1252,7 @@ def phase_policies_mid(dev) -> None:
         tree_map(check, cpu_p)
         same_leaves = not differ and len(tree_leaves(cpu_p)) == len(tree_leaves(gpu_p))
         rel = POLICY_MID_REL[policy]
-        can_err, fov_err = _gap(can_g, can_c), _gap(fov_g, fov_c)
+        can_err, fov_err = rel_gap(can_g, can_c), rel_gap(fov_g, fov_c)
         ok = (same_leaves and bool(torch.isfinite(can_g).all()) and can_err <= rel
               and fov_err <= rel)
         print(f"[13] MID --dtype={policy} card vs CPU: leaves placed on the card equal the "
@@ -1499,6 +1550,267 @@ def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
     return counts
 
 
+def _mesh_expectations(cfg, data: int, model: int) -> dict:
+    """attention_qkv's launches by shape on each rank of a (data, model)
+    mesh at one photo: the patch ViT on ceil(35 / data) patches, the image
+    and FOV ViTs on the one image, each with num_heads / model heads."""
+    h = cfg.num_heads // model
+    n, d = cfg.seq_len, cfg.head_dim
+    return {str((-(-35 // data), n, h, d, "bfloat16")): cfg.depth,
+            str((1, n, h, d, "bfloat16")): cfg.depth, str((1, n, h, d, "float32")): cfg.depth}
+
+
+def _rank_summary(phase_tag: str, r: dict) -> str:
+    calls = {k: (v["calls"], v["bytes"]) for k, v in r["report"]["collectives"].items()}
+    return (f"{phase_tag} rank {r['rank']} mesh {r['mesh'][0]}x{r['mesh'][1]} on {r['device']}: "
+            f"launches attention_qkv {r['kernels']['attention_qkv']} conv3x3 "
+            f"{r['kernels']['conv3x3']}; attention by (B, N, H, D, dtype) "
+            f"{r['kernels']['attention_by_shape']}; conv3x3 by N {r['kernels']['conv3x3_by_batch']}"
+            f"; collectives (calls, bytes) {calls}; patch rows {r['report']['patch_rows_per_rank']}"
+            f"; shard {r['shard_s']:.2f} s; forward walls s {[round(w, 3) for w in r['walls']]}")
+
+
+def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
+    """What a user calls under ``--devices=2x2``, on four gloo ranks sharing
+    the card, at full width with the phase-4 weights (the ranks' checkpoint
+    reader answers with them): one rank of the CLI on the phase-4 photo
+    (the FOV head), on the EXIF photo with ``--focal-length=28`` (no FOV
+    head) and on a directory of three photos at ``--batch-size=2`` (the
+    batch split over data); a ``MatrixEyes`` session's
+    ``inverse_depth_batch`` and ``process_batch`` on the mesh. Rank 0's
+    PNGs are held to phase 4's and phase 9's one-card PNGs, the session's
+    inverse depth to phase 4's; every call's launches and collectives to
+    what its forwards run. Returns rank 0's launches by call."""
+    import torch
+
+    from matrix_eyes_tpu_torch.parallel import launch
+    from matrix_eyes_tpu_torch.parallel.checks import run_entry_points
+
+    out = os.path.join(OUT_DIR, "mesh_2x2")
+    shutil.rmtree(out, ignore_errors=True)
+    in_dir = os.path.join(out, "photos")
+    os.makedirs(in_dir)
+    trio = [photos[1], photos[2], photos[4]]  # the first pair's forward is the mixed one
+    for p in trio:
+        shutil.copy(p, in_dir)
+    one = os.path.join(OUT_DIR, "batch1")  # phase 9's one-card PNGs
+
+    def ref(p):
+        return os.path.join(one, os.path.splitext(os.path.basename(p))[0] + ".png")
+
+    ckpt = [f"--checkpoint-path={weights}"]
+    calls = [  # (name, call, [(rank 0's PNG, its one-card PNGs)])
+        ("cli", dict(cli=ckpt + [photos[0], os.path.join(out, "photo.png")], batch=1,
+                     n_vits=3, forwards=1),
+         [(os.path.join(out, "photo.png"),
+           [os.path.join(OUT_DIR, "chip_smoke_depthmap.png"), ref(photos[0])])]),
+        ("cli_focal", dict(cli=ckpt + ["--focal-length=28", photos[2],
+                                       os.path.join(out, "focal.png")],
+                           batch=1, n_vits=2, forwards=1),
+         [(os.path.join(out, "focal.png"), [ref(photos[2])])]),
+        ("cli_batch2", dict(cli=ckpt + ["--batch-size=2", in_dir, out], batch=2, n_vits=3,
+                            forwards=2),
+         [(os.path.join(out, os.path.basename(ref(p))), [ref(p)]) for p in trio]),
+        ("session_inverse_depth", dict(inverse_depth_batch=[photos[0]], batch=1, n_vits=3,
+                                       forwards=1), []),
+        ("session_process_batch", dict(process_batch=[(photos[3],
+                                                       os.path.join(out, "session.png"))],
+                                       batch_size=1, batch=1, n_vits=3, forwards=1),
+         [(os.path.join(out, "session.png"), [ref(photos[3])])]),
+    ]
+    t0 = time.perf_counter()
+    ranks = launch(run_entry_points, (2, 2), cfg, weights, [c for _n, c, _p in calls],
+                   backend="gloo", devices=[str(dev)] * 4, timeout=MESH_TIMEOUT)
+    print(f"[16] entry points on a 2x2 gloo world sharing {dev}: "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    counts = {}
+    for i, (name, call, pngs) in enumerate(calls):
+        got = [r["calls"][i] for r in ranks]
+        for r, g in zip(ranks, got):
+            require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
+            want = {"attention_qkv": call["forwards"] * call["n_vits"] * cfg.depth,
+                    "conv3x3": call["forwards"] * 24}
+            have = {k: g["kernels"][k] for k in want}
+            calls_ = {k: (v["calls"], v["bytes"]) for k, v in g["report"]["collectives"].items()}
+            print(f"[16] {name} rank {r['rank']}: exit {g.get('rc', '-')}, wall "
+                  f"{g['wall']:.2f} s (loads included, ranks time-sharing one card); launches "
+                  f"{have}; attention by (B, N, H, D, dtype) "
+                  f"{g['kernels']['attention_by_shape']}; conv3x3 by N "
+                  f"{g['kernels']['conv3x3_by_batch']}; collectives (calls, bytes) {calls_}")
+            require(g.get("rc", 0) == 0, f"{name}: rank {r['rank']} exited {g.get('rc')}")
+            require(have == want, f"{name} rank {r['rank']}: launches {have}, expected {want}")
+        counts[f"mesh_2x2_{name}"] = got[0]["kernels"]
+        for png, refs in pngs:
+            require(os.path.exists(png), f"{name}: rank 0 wrote no {png}")
+            for r_png in refs:
+                mean, p999, top = png_diff(png, r_png)
+                print(f"[16] {name}: {os.path.basename(png)} vs one card's "
+                      f"{os.path.relpath(r_png, OUT_DIR)}: mean |diff| {mean:.4f} counts, "
+                      f"99.9th percentile {p999:.0f}, max {top}")
+                require(mean <= PNG_MEAN_COUNTS, f"{name}: {png} leaves the gate of {r_png} "
+                        f"(mean |diff| <= {PNG_MEAN_COUNTS} counts)")
+        if "inverse_depth_batch" in call:
+            res = compare(got[0]["inv"], ref_inv.cpu(), torch.bfloat16)
+            same = all(torch.equal(g["inv"], got[0]["inv"]) for g in got)
+            print(f"[16] {name}: inverse depth vs phase 4 max_abs={res['max_abs_err']:.3e} "
+                  f"max_rel={res['max_rel_err']:.3e} (gate {BF16_REL:g}); ranks bit-equal: "
+                  f"{same}")
+            require(res["ok"] and same, f"{name}: the session's inverse depth")
+    for c in counts.values():
+        c.setdefault("linker_scan", 0)
+    return counts
+
+
+def phase_multi_device(dev, src, ref_inv, photos: list) -> dict:
+    """``--devices`` and the sharded forward on one card: the refusal of a
+    mesh larger than the machine, an NCCL world of one rank bit for bit
+    against phase 4, gloo ranks sharing the card at full width (1x2, 2x1,
+    2x2) within the bf16 gate of phase 4, MID 2x2 on the card against the
+    same mesh on the CPU under f32, int8 and mixed, and the entry points
+    (the CLI's ranks, a session) at 2x2 (``_entry_points_2x2``). Returns
+    rank 0's launch counts by mesh and call."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch import cli, pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, MID, parse_dtype_policy
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.models.spec import tree_map
+    from matrix_eyes_tpu_torch.parallel import launch
+    from matrix_eyes_tpu_torch.parallel.checks import run_cases
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    cfg = DEPTH_PRO
+    # 1. more devices than the machine has: the Device error, exit 1
+    n_cards = torch.cuda.device_count()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([f"--devices={n_cards + 1}", photos[0],
+                       os.path.join(OUT_DIR, "never.png")])
+    want = (f"Device error: --devices={n_cards + 1}x1 needs {n_cards + 1} devices but only "
+            f"{n_cards} are available")
+    print(f"[16] cli.main --devices={n_cards + 1} on {n_cards} card(s): exit {rc}, "
+          f"{out.getvalue().strip().splitlines()[-1]!r}")
+    require(rc == 1 and want in out.getvalue(), "--devices beyond the cards was not refused")
+
+    # the phase-4 weights (the seed regenerates them) on the host, mapped
+    # from disk by every rank; the phase-4 photo's preprocessed image
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    weights = os.path.join(OUT_DIR, "weights_bf16.pt")
+    torch.save(tree_map(lambda _p, t: t.cpu(), params), weights)
+    del params
+    torch.cuda.empty_cache()
+    img = pipeline.preprocess_image(src.rgb, cfg.img_size, torch.bfloat16, dev).cpu()
+    print(f"[16] phase-4 weights written for the ranks in {time.perf_counter() - t0:.1f} s "
+          f"({os.path.getsize(weights) / 2**30:.2f} GiB)")
+    counts = {}
+    try:
+        # 2. NCCL, one rank: the real backend and launcher, bit for bit
+        t0 = time.perf_counter()
+        (r,) = launch(run_cases, (1, 1), [dict(cfg=cfg, params=weights, img=img)],
+                      timeout=MESH_TIMEOUT)
+        case = r["cases"][0]
+        equal = torch.equal(case["inv"], ref_inv.cpu())
+        res = compare(case["inv"], ref_inv.cpu(), torch.bfloat16)
+        print(f"[16] NCCL 1x1 ({time.perf_counter() - t0:.1f} s with start-up): world "
+              f"all-reduce {r['world_sum']}, inverse depth == phase 4's: {equal} "
+              f"(max_abs={res['max_abs_err']:.3e}, max_rel={res['max_rel_err']:.3e}); fov "
+              f"{case['fov'].item():.6f} deg; foreign modules {r['foreign_modules']}")
+        print(_rank_summary("[16]", case))
+        require(r["backend"] == "nccl" and r["world_sum"] == 1.0, "the NCCL world did not run")
+        require(equal, "NCCL 1x1 inverse depth differs from phase 4's one-device forward")
+        require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
+        counts["mesh_nccl_1x1"] = case["kernels"]
+
+        # 3. gloo ranks sharing the card, full width: 1x2 and 2x1 in one
+        # world of two ranks, then 2x2 in a world of four with MID beside it
+        mid = init_params(MID, torch.Generator().manual_seed(3), "cpu", torch.float32)
+        mid_img = np.random.RandomState(5).uniform(-1, 1, (1, MID.img_size, MID.img_size, 3))
+        mid_img = torch.from_numpy(mid_img.astype(np.float32))
+        mid_cases = []
+        for policy in ("f32", "int8", "mixed"):
+            dtype, q8, mixed = parse_dtype_policy(policy)
+            placed = place_params(mid, "cpu", dtype, quantize_int8=q8, mixed_bf16=mixed)
+            x = mid_img.to(torch.float32 if policy in ("f32", "mixed") else torch.bfloat16)
+            for where in (None, "cpu"):  # the ranks' card, then the host
+                mid_cases.append((policy, where, dict(cfg=MID, params=placed, img=x,
+                                                      device=where)))
+        worlds = (((1, 2), [dict(cfg=cfg, params=weights, img=img, runs=2),
+                            dict(cfg=cfg, params=weights, img=img, runs=2, model=1)]),
+                  ((2, 2), [dict(cfg=cfg, params=weights, img=img, runs=2)]
+                   + [c for _p, _w, c in mid_cases]))
+        for shape, cases in worlds:
+            n = shape[0] * shape[1]
+            t0 = time.perf_counter()
+            results = launch(run_cases, shape, cases, backend="gloo",
+                             devices=[str(dev)] * n, timeout=MESH_TIMEOUT)
+            print(f"[16] gloo world of {n} ranks sharing {dev}: "
+                  f"{time.perf_counter() - t0:.1f} s with start-up")
+            for r in results:
+                require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
+            for i in range(2 if shape == (1, 2) else 1):
+                rank_cases = [r["cases"][i] for r in results]
+                data, model = rank_cases[0]["mesh"]
+                for rc_ in rank_cases:
+                    print(_rank_summary("[16]", rc_))
+                    want = _mesh_expectations(cfg, data, model)
+                    require(rc_["kernels"]["attention_qkv"] == 3 * cfg.depth
+                            and rc_["kernels"]["conv3x3"] == 24,
+                            f"{data}x{model} rank {rc_['rank']}: launches {rc_['kernels']}")
+                    require(rc_["kernels"]["attention_by_shape"] == want,
+                            f"{data}x{model}: attention shapes "
+                            f"{rc_['kernels']['attention_by_shape']}, expected {want}")
+                    reduces = rc_["report"]["collectives"].get("all-reduce", {}).get("calls", 0)
+                    require(reduces == (6 * cfg.depth if model > 1 else 0),
+                            f"{data}x{model}: {reduces} all-reduces")
+                res = compare(rank_cases[0]["inv"], ref_inv.cpu(), torch.bfloat16)
+                same = all(torch.equal(c["inv"], rank_cases[0]["inv"]) for c in rank_cases)
+                walls = [c["walls"][-1] for c in rank_cases]
+                print(f"[16] {data}x{model} bf16 DEPTH_PRO, {n} ranks time-sharing one card "
+                      f"(not a speed-up): inverse depth vs phase 4 max_abs="
+                      f"{res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
+                      f"(gate {BF16_REL:g}) {'ok' if res['ok'] else 'FAIL'}; ranks bit-equal: "
+                      f"{same}; warm forward wall per rank s {[round(w, 3) for w in walls]}")
+                require(res["ok"], f"{data}x{model}: inverse depth outside the bf16 gate")
+                require(same, f"{data}x{model}: the ranks' inverse depths differ")
+                counts[f"mesh_{data}x{model}"] = rank_cases[0]["kernels"]
+        # 4. MID 2x2, card against CPU over the same ranks
+        rank0 = results[0]["cases"][1:]
+        for k in range(0, len(rank0), 2):
+            policy = mid_cases[k][0]
+            card, host = rank0[k], rank0[k + 1]
+            if policy == "f32":
+                f_norm = math.tan(0.5 * host["fov"].item() * math.pi / 180.0) / 0.5
+                a, b = card["inv"] * f_norm, host["inv"] * f_norm
+                ok = (bool(torch.isfinite(a).all())
+                      and bool(((a - b).abs() <= E2E_ATOL + E2E_RTOL * b.abs()).all())
+                      and bool(torch.allclose(card["fov"], host["fov"], rtol=E2E_RTOL, atol=0)))
+                err = (a - b).abs().max().item()
+            else:  # as phase 13: the canonical inverse depth and the FOV, each
+                can = [r["inv"] * (torch.tan(0.5 * r["fov"] * math.pi / 180.0) / 0.5)
+                       for r in (card, host)]
+                err = rel_gap(can[0], can[1])
+                fov_err = rel_gap(card["fov"], host["fov"])
+                ok = (bool(torch.isfinite(can[0]).all())
+                      and max(err, fov_err) <= POLICY_MID_REL[policy])
+            print(f"[16] MID 2x2 --dtype={policy} card vs CPU: "
+                  f"{'inverse depth x f_norm max_abs' if policy == 'f32' else 'canonical max_rel'}"
+                  f"={err:.3e}, fov {card['fov'].item():.6f} vs {host['fov'].item():.6f} deg; "
+                  f"collectives {card['report']['collectives']} {'ok' if ok else 'FAIL'}")
+            require(ok, f"MID 2x2 --dtype={policy}: the card disagrees with the CPU")
+        # 5. the entry points a user calls, at 2x2
+        counts.update(_entry_points_2x2(dev, cfg, weights, photos, ref_inv))
+    finally:
+        os.remove(weights)
+    for c in counts.values():
+        c.setdefault("linker_scan", 0)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1524,7 +1836,7 @@ def main() -> int:
     by_path["depthmap_png_f32"], conv_shapes, inv_f32 = phase_f32_path(dev, src)
     hot["conv3x3"]["per_forward_f32"] = conv_per_forward(conv_rows, conv_shapes, torch.float32,
                                                          5)
-    bf16_gap = _gap(inv_bf16, inv_f32)
+    bf16_gap = rel_gap(inv_bf16, inv_f32)
     phase_end_to_end(dev)
     by_path.update(phase_stereogram(dev, params, src))
     photos = write_photos(src)
@@ -1544,6 +1856,7 @@ def main() -> int:
     by_path["warm_start"] = phase_warm_start(dev, canonical, photos[0])
     del canonical
     torch.cuda.empty_cache()
+    by_path.update(phase_multi_device(dev, src, inv_bf16, photos))
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -1586,6 +1899,9 @@ def main() -> int:
             for key in ("batch4_fov_f32", "batch4_f32"):
                 kernels[-1][key] = {k: hot[f"attention_qkv_{key}"][k]
                                     for k in row_keys + ("bound_cuda_core_ms",)}
+            # the shapes a rank of a sharded mesh runs (phase 16)
+            kernels[-1]["per_shard"] = [{k: row[k] for k in row_keys}
+                                        for row in hot["attention_qkv_per_shard"]]
         if name == "conv3x3":
             kernels[-1]["batch4"] = {k: hot["conv3x3_batch4"][k] for k in row_keys}
             kernels[-1]["batch4_f32"] = {k: hot["conv3x3_batch4_f32"][k]

@@ -9,7 +9,11 @@
     me.process("photo.jpg", "mesh.obj", vertex_mode="plain")
     me.process_batch([("a.jpg", "a.png"), ("b.jpg", "b.png")], batch_size=2)
 
-The session runs on the card unless ``device="cpu"`` is asked for.
+The session runs on the card unless ``device="cpu"`` is asked for. On a
+device mesh (``parallel.launch``, one process per rank), each rank opens
+its own session and passes its ``mesh`` to ``inverse_depth_batch`` or
+``process_batch``; a session on the CPU with a mesh of cards moves only
+each rank's cut of the parameters to its card.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from matrix_eyes_tpu_torch.config import (
 from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.models import depth_pro
 from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat, VertexMode
+from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
 from matrix_eyes_tpu_torch.pipeline import extract_depth_batch, forward_batch, preprocess_image
 from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
 
@@ -57,6 +62,7 @@ class MatrixEyes:
             checkpoint_path, dtype=self.runtime.resolved_dtype(),
             device=self.runtime.resolved_device(), convert_checkpoints=convert_checkpoints,
             cfg=cfg, quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
+        self._sharded = {}  # parallel.Mesh -> this rank's parameters
 
     # -- depth -------------------------------------------------------------
 
@@ -73,9 +79,21 @@ class MatrixEyes:
         return SourceImage(rgb=rgb, original_size=(rgb.shape[1], rgb.shape[0]),
                            focal_length_35mm=focal_length_35mm)
 
-    def _preprocess(self, src: SourceImage) -> torch.Tensor:
-        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.image_dtype(),
-                                self.runtime.resolved_device())
+    def _preprocess(self, src: SourceImage, mesh=None) -> torch.Tensor:
+        device = mesh.device if mesh is not None else self.runtime.resolved_device()
+        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.image_dtype(), device)
+
+    def _params_for_mesh(self, mesh):
+        """The session's parameters cut for ``mesh`` (``parallel.shard_params``),
+        cached per mesh: the head-group permutation and the copies to the
+        rank's device are paid once."""
+        if mesh is None:
+            return self.params
+        from matrix_eyes_tpu_torch.parallel.sharding import shard_params
+
+        if mesh not in self._sharded:
+            self._sharded[mesh] = shard_params(self.params, mesh, num_heads=self.cfg.num_heads)
+        return self._sharded[mesh]
 
     def depth_map(self, image: Image, focal_length_35mm: Optional[float] = None) -> DepthMap:
         """Run the network on one image; returns the DepthMap on the device."""
@@ -95,12 +113,19 @@ class MatrixEyes:
 
     def inverse_depth_batch(self, images: Sequence[Image],
                             focal_length_35mm: Union[float, Sequence[Optional[float]],
-                                                     None] = None) -> np.ndarray:
+                                                     None] = None,
+                            mesh=None) -> np.ndarray:
         """One forward over a stack of images (paths or (H, W, 3) u8 arrays,
         sizes may differ). ``focal_length_35mm``: None (each image's EXIF;
         the FOV head fills the gaps), one value for all, or one per image
         (None where unknown). Returns the model's (B, S, S) inverse depth,
-        f32, clamped to [1e-4, 1e4] as the forward clamps it."""
+        f32, clamped to [1e-4, 1e4] as the forward clamps it.
+
+        ``mesh`` (``parallel.make_mesh``, inside ``parallel.launch``): every
+        rank calls this with the same images; the batch is split over the
+        mesh's data axis and the ViT blocks over its model axis (the cut
+        parameters are cached per mesh), and every rank gets the whole
+        result."""
         if not images:
             return np.zeros((0, self.cfg.img_size, self.cfg.img_size), np.float32)
         if focal_length_35mm is None or isinstance(focal_length_35mm, (int, float)):
@@ -110,15 +135,18 @@ class MatrixEyes:
             if len(focals) != len(images):
                 raise ValueError(f"{len(images)} images but {len(focals)} focal lengths")
         srcs = [self._load(im, f) for im, f in zip(images, focals)]
-        return self._forward(srcs).cpu().numpy()
+        return self._forward(srcs, mesh=mesh).cpu().numpy()
 
-    def _forward(self, sources: Sequence[SourceImage], pad: int = 0) -> torch.Tensor:
+    def _forward(self, sources: Sequence[SourceImage], pad: int = 0,
+                 mesh=None) -> torch.Tensor:
         """One forward over the sources and ``pad`` copies of the last one's
         preprocessed image: (B + pad, S, S) inverse depth on the device."""
-        imgs = [self._preprocess(s) for s in sources]
+        imgs = [self._preprocess(s, mesh) for s in sources]
         f_norms = [s.f_norm() for s in sources]
-        return forward_batch(self.cfg, self.params, torch.cat(imgs + imgs[-1:] * pad),
-                             f_norms + f_norms[-1:] * pad)
+        params = self._params_for_mesh(mesh)
+        with patch_sharded(mesh):
+            return forward_batch(self.cfg, params, torch.cat(imgs + imgs[-1:] * pad),
+                                 f_norms + f_norms[-1:] * pad)
 
     def depth_maps(self, sources: Sequence[SourceImage],
                    pad_to_pow2: bool = False) -> List[DepthMap]:
@@ -147,14 +175,16 @@ class MatrixEyes:
     def process_batch(self, jobs: Sequence[Tuple[str, str]], batch_size: int = 4,
                       focal_length_35mm: Optional[float] = None, image_format: str = "depthmap",
                       vertex_mode: str = "vertex-colors", resize_scale: Optional[float] = None,
-                      stereo_amplitude: float = 1.0 / 16.0) -> None:
+                      stereo_amplitude: float = 1.0 / 16.0, mesh=None) -> None:
         """Photos -> output files, one forward per ``batch_size`` images
         (the CLI's ``--batch-size``; ``pipeline.extract_depth_batch``).
         ``jobs``: ``(source_path, destination_path)`` pairs. A failed decode
         or write skips that image; one ReconstructionError ("N of M images
-        failed") follows at the end. A model failure raises at once."""
-        extract_depth_batch(self.cfg, self.params, jobs, batch_size,
+        failed") follows at the end. A model failure raises at once.
+        ``mesh``: every rank calls this with the same jobs; rank 0 decodes
+        and writes, every rank runs the sharded forward."""
+        extract_depth_batch(self.cfg, self._params_for_mesh(mesh), jobs, batch_size,
                             focal_length_35mm=focal_length_35mm,
                             image_format=ImageOutputFormat(image_format),
                             vertex_mode=VertexMode(vertex_mode), resize_scale=resize_scale,
-                            stereo_amplitude=stereo_amplitude, runtime=self.runtime)
+                            stereo_amplitude=stereo_amplitude, runtime=self.runtime, mesh=mesh)

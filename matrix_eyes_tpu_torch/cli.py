@@ -12,8 +12,11 @@ for one photo or (a directory source) for every photo of a directory,
 ``--batch-size`` photos per forward, under every dtype policy of the JAX
 package (``--dtype=f32|bf16|f16|int8|mixed``). ``--convert-checkpoints``
 writes the weight caches beside the checkpoint (``pt/loader.py``), which
-later runs load without reading the ``.pt``. Flags of the JAX package that
-the port does not run (``--devices``, ``--no-flash-attention``, ...) exit 2
+later runs load without reading the ``.pt``. ``--devices=N|DATAxMODEL``
+runs the whole pipeline sharded over a mesh of N = DATA x MODEL cards, one
+process per card (``parallel/``), from this one command: rank 0 writes the
+output and the command exits with its code. Flags of the JAX package that
+the port does not run (``--no-flash-attention``, ``--profile``) exit 2
 with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
 to stderr on exit.
 """
@@ -23,7 +26,7 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from matrix_eyes_tpu_torch import __version__
 
@@ -45,10 +48,11 @@ Options:
       --dtype=<DTYPE>                     Compute/parameter dtype [default: bf16 on CUDA, f32 elsewhere] [possible values: f32, bf16, f16, int8, mixed]
       --seed=<SEED>                       Stereogram noise seed [default: 0]
       --batch-size=<N>                    Images per forward in directory mode [default: 1]
+      --devices=<N|DATAxMODEL>            Shard over N cards: DATA over the patch batch, MODEL over the ViT blocks [default: 1]
       --help                              Print help"""
 
 # flags of the JAX package's CLI that the port does not run yet
-_NOT_PORTED = ("--devices", "--no-flash-attention", "--profile")
+_NOT_PORTED = ("--no-flash-attention", "--profile")
 
 
 @dataclass
@@ -62,6 +66,7 @@ class Args:
     dtype: Optional[str] = None
     seed: int = 0
     batch_size: int = 1
+    devices: Optional[Tuple[int, int]] = None  # (data, model)
     convert_checkpoints: bool = False
     img_src: str = ""
     img_out: str = ""
@@ -120,6 +125,8 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
                 args.seed = parse_value(name, value, int)
             elif name == "--batch-size":
                 args.batch_size = parse_value(name, value, _batch_size)
+            elif name == "--devices":
+                args.devices = parse_value(name, value, _mesh_shape)
             elif name == "--checkpoint-path":
                 args.checkpoint_path = value
             elif name == "--dtype":
@@ -149,6 +156,17 @@ def _batch_size(value: str) -> int:
     return n
 
 
+def _mesh_shape(value: str) -> Tuple[int, int]:
+    """``N`` -> (N, 1), ``DATAxMODEL`` -> (DATA, MODEL), each >= 1."""
+    parts = value.lower().split("x")
+    if len(parts) > 2:
+        raise ValueError("expected N or DATAxMODEL")
+    dims = [int(p) for p in parts]  # ValueError on junk
+    if any(d < 1 for d in dims):
+        raise ValueError("mesh dimensions must be >= 1")
+    return dims[0], dims[1] if len(dims) == 2 else 1
+
+
 def _jobs(args: Args) -> list:
     """(source, destination) pairs of a directory source: its .jpg, .jpeg
     and .png files in sorted order, each written as a PNG of the same stem
@@ -166,13 +184,18 @@ def _jobs(args: Args) -> list:
             for s in sources]
 
 
-def run(args: Args, progress=None, device=None) -> None:
+def run(args: Args, progress=None, device=None, mesh=None) -> None:
     """Load the checkpoint (the FOV part only when some photo lacks a focal
     length) and run the pipeline on the CUDA card, or on ``device`` when a
     programmatic caller names one ("cpu"). A directory source runs every
     photo: ``--batch-size`` per forward, or one at a time with the next
     decode prefetched; a failed decode or write skips that photo, a model
-    failure ends the run."""
+    failure ends the run.
+
+    ``mesh``: this rank's mesh (``--devices``, see ``main``). The
+    checkpoint is read on the host and each rank moves only its cut of the
+    parameters to its device (``parallel.shard_params``); rank 0 decodes
+    and writes."""
     from matrix_eyes_tpu_torch.config import RuntimeConfig, parse_dtype_policy
     from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
     from matrix_eyes_tpu_torch.io.image import load_source_image, probe_focal_length_35mm
@@ -182,31 +205,41 @@ def run(args: Args, progress=None, device=None) -> None:
 
     dtype, quantize_int8, mixed_bf16 = (parse_dtype_policy(args.dtype) if args.dtype
                                         else (None, False, False))
+    if mesh is not None:
+        device = mesh.device
     runtime = RuntimeConfig(dtype=dtype, device=device, seed=args.seed,
                             quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
+    lead = mesh is None or mesh.rank == 0
     batch = os.path.isdir(args.img_src)
-    if batch:
-        jobs = [(s, o, None) for s, o in _jobs(args)]
+    if batch or mesh is not None:
+        # under a mesh rank 0 decodes the photo in the pipeline, which tells
+        # every rank of a failure
+        jobs = ([(s, o, None) for s, o in _jobs(args)] if batch
+                else [(args.img_src, args.img_out, None)])
         # the EXIF headers alone decide whether the FOV weights are needed
         need_fov = args.focal_length is None and any(
             probe_focal_length_35mm(s) is None for s, _o, _src in jobs)
     else:
         jobs = [(args.img_src, args.img_out, load_source_image(args.img_src, args.focal_length))]
         need_fov = jobs[0][2].f_norm() is None
-        if args.batch_size > 1:
-            print("--batch-size only applies when the source is a directory; ignored",
-                  file=sys.stderr)
+    if not batch and args.batch_size > 1 and lead:
+        print("--batch-size only applies when the source is a directory; ignored",
+              file=sys.stderr)
     parts = ("encoder", "decoder", "head") + (("fov",) if need_fov else ())
     if progress is not None:
         progress.update_message("reading checkpoint")
-    cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
-                                  device=runtime.resolved_device(),
-                                  convert_checkpoints=args.convert_checkpoints, parts=parts,
-                                  quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
+    if mesh is None:
+        cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
+                                      device=runtime.resolved_device(),
+                                      convert_checkpoints=args.convert_checkpoints, parts=parts,
+                                      quantize_int8=quantize_int8, mixed_bf16=mixed_bf16)
+    else:
+        cfg, params = _load_sharded(args, runtime, parts, mesh)
     options = dict(focal_length_35mm=args.focal_length,
                    image_format=ImageOutputFormat(args.output_format),
                    vertex_mode=VertexMode(args.vertex_mode), resize_scale=args.resize_scale,
-                   stereo_amplitude=args.stereo_amplitude, runtime=runtime, progress=progress)
+                   stereo_amplitude=args.stereo_amplitude, runtime=runtime, progress=progress,
+                   mesh=mesh)
     if batch and args.batch_size > 1:
         extract_depth_batch(cfg, params, [(s, o) for s, o, _src in jobs], args.batch_size,
                             **options)
@@ -217,7 +250,7 @@ def run(args: Args, progress=None, device=None) -> None:
     # reports it with its stage message). This loop wrote more photos per
     # second on an H100 than extract_depth_batch at batch size 1 (PERF.md)
     pool = next_fut = None
-    if len(jobs) > 1:
+    if len(jobs) > 1 and lead:
         from concurrent.futures import ThreadPoolExecutor
 
         pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="me-decode")
@@ -247,6 +280,93 @@ def run(args: Args, progress=None, device=None) -> None:
         raise ReconstructionError(f"{failed} of {len(jobs)} images failed")
 
 
+def _load_sharded(args: Args, runtime, parts, mesh):
+    """(cfg, this rank's parameters): the checkpoint placed on the host
+    under the dtype policy, then cut for ``mesh``. With
+    ``--convert-checkpoints`` rank 0 writes the caches before the others
+    read."""
+    from matrix_eyes_tpu_torch import timings
+    from matrix_eyes_tpu_torch.parallel.collectives import broadcast
+    from matrix_eyes_tpu_torch.parallel.sharding import shard_params
+    from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
+
+    def load(convert: bool):
+        return load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
+                               device="cpu", convert_checkpoints=convert, parts=parts,
+                               quantize_int8=runtime.quantize_int8,
+                               mixed_bf16=runtime.mixed_bf16)
+
+    if args.convert_checkpoints:
+        import torch
+
+        loaded = load(True) if mesh.rank == 0 else None
+        broadcast(torch.zeros(1, device=mesh.device), mesh)  # the caches are written
+        cfg, params = loaded if loaded is not None else load(False)
+    else:
+        cfg, params = load(False)
+    with timings.span("shard parameters"):
+        return cfg, shard_params(params, mesh, num_heads=cfg.num_heads)
+
+
+def _rank_main(mesh, args: Args) -> int:
+    """One rank of ``--devices``: the CLI's run on this rank's device; rank
+    0 reports progress, failures and timings. Returns 0; a failure raises
+    ``RankStop`` (exit code 1), which ends every rank: the others may wait
+    in a collective this rank will never join."""
+    from matrix_eyes_tpu_torch import timings
+    from matrix_eyes_tpu_torch.errors import MatrixEyesError
+    from matrix_eyes_tpu_torch.parallel.launch import RankStop
+    from matrix_eyes_tpu_torch.progress import ConsoleProgressReporter
+
+    lead = mesh.rank == 0
+    pb = ConsoleProgressReporter() if lead else None
+    try:
+        run(args, progress=pb, mesh=mesh)
+    except MatrixEyesError as err:
+        if lead:
+            pb.finish_and_clear()
+            print(f"Reconstruction failed: {err}")
+        raise RankStop(1, "" if lead else str(err)) from err
+    finally:
+        if lead:
+            pb.finish_and_clear()
+            timings.report()
+    return 0
+
+
+def run_devices(args: Args, device=None) -> int:
+    """``--devices=DATAxMODEL`` beyond 1x1: refuse a mesh larger than the
+    devices (nothing falls back to fewer, or to the CPU), else start the
+    ranks, one per card over NCCL (or, for a caller asking for the CPU,
+    one per core over gloo), and return rank 0's exit code. A rank's
+    failure ends every rank at once; the run has no deadline otherwise."""
+    import torch
+
+    from matrix_eyes_tpu_torch.errors import ReconstructionError
+    from matrix_eyes_tpu_torch.parallel.launch import RankStop, launch
+
+    data, model = args.devices
+    n = data * model
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if on_cpu:
+        available = os.cpu_count() or 1
+    else:
+        available = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > available:
+        raise ReconstructionError(f"Device error: --devices={data}x{model} needs {n} devices "
+                                  f"but only {available} are available")
+    devices = ["cpu"] * n if on_cpu else [f"cuda:{i}" for i in range(n)]
+    try:
+        codes = launch(_rank_main, (data, model), args, devices=devices, timeout=None)
+    except RankStop as stop:
+        if stop.rank != 0:  # rank 0 reports its own failures
+            print(f"Reconstruction failed on rank {stop.rank}: {stop.message}")
+        return stop.code
+    except (RuntimeError, TimeoutError) as err:
+        raise ReconstructionError(f"Device error: {err}") from err
+    return codes[0]
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """The CLI. ``device`` is for programmatic callers (the tests pass
     "cpu"); the command line has no such flag and runs on the card."""
@@ -262,6 +382,12 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
     from matrix_eyes_tpu_torch import timings
 
+    if args.devices is not None and args.devices != (1, 1):
+        try:
+            return run_devices(args, device)
+        except (MatrixEyesError, NoCudaDevice) as err:
+            print(f"Reconstruction failed: {err}")
+            return 1
     pb = ConsoleProgressReporter()
     try:
         run(args, progress=pb, device=device)

@@ -4,7 +4,9 @@ Pyramid 1536/768/384 -> overlapping 384^2 patch split (25 + 9 + 1 = 35
 patches per image) -> shared ViT-L patch encoder with highres
 intermediates -> overlap-trimmed merge back to feature grids -> per-scale
 projection + upsample chains -> low-res fusion with the separate ViT-L
-image encoder.
+image encoder. On a device mesh the pyramid's patches are split over the
+data ranks and gathered before the merge, as the JAX package's
+``shard_patches`` constraint has GSPMD do.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from matrix_eyes_tpu_torch.config import ModelConfig
 from matrix_eyes_tpu_torch.models import vit
 from matrix_eyes_tpu_torch.ops import nn
 from matrix_eyes_tpu_torch.ops.resize import downsample_half, downsample_quarter
+from matrix_eyes_tpu_torch.parallel.sharding import gather_patches, shard_batch, shard_patches
 
 Params = Dict
 
@@ -71,7 +74,9 @@ def _upsample_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 def forward_encodings(cfg: ModelConfig, params: Params, x: torch.Tensor) -> List[torch.Tensor]:
     """x: (B, 1536, 1536, 3) NHWC. Returns 5 NHWC encodings, finest to
     coarsest: 768^2@256, 384^2@256, 192^2@512, 96^2@1024, 48^2@1024 for
-    ``DEPTH_PRO``."""
+    ``DEPTH_PRO``. Inside ``parallel.patch_sharded`` the patch ViT runs on
+    this rank's patches and, where the data axis divides B, the encodings
+    are this rank's B / data images (``parallel.sharding.shard_batch``)."""
     P = cfg.vit_img_size
     out_size = cfg.tokens_per_side
     pad_hi = out_size // 8
@@ -85,17 +90,24 @@ def forward_encodings(cfg: ModelConfig, params: Params, x: torch.Tensor) -> List
     n0, n1 = x0_patches.shape[0], x1_patches.shape[0]
     pyramid = torch.cat([x0_patches, x1_patches, x2], dim=0)  # 35 * B
 
+    # on a data mesh: this rank's rows of the pyramid, padded to a multiple
+    # of the data axis; the feature grids are gathered back before the merge
+    pyramid, n_patches = shard_patches(pyramid)
     encodings, (highres0, highres1) = vit.forward_features(
         cfg, params["patch_encoder"], pyramid, intermediate_blocks=cfg.highres_block_ids)
-    enc_grid = reshape_feature(cfg, encodings)
+    enc_grid, highres0, highres1 = (gather_patches(reshape_feature(cfg, t), n_patches)
+                                    for t in (encodings, highres0, highres1))
+    # where the data axis divides the batch, the rest runs on this rank's
+    # images (the stacks are tile-major: tile outer, image inner)
+    local = shard_batch(x2).shape[0]
     # highres intermediates come from the x0 patches only
-    latent0 = merge(reshape_feature(cfg, highres0)[:n0], batch_size, pad_hi)
-    latent1 = merge(reshape_feature(cfg, highres1)[:n0], batch_size, pad_hi)
-    x0_feat = merge(enc_grid[:n0], batch_size, pad_hi)
-    x1_feat = merge(enc_grid[n0:n0 + n1], batch_size, pad_lo)
-    x2_feat = enc_grid[n0 + n1:]
+    latent0 = merge(shard_batch(highres0[:n0], batch_size), local, pad_hi)
+    latent1 = merge(shard_batch(highres1[:n0], batch_size), local, pad_hi)
+    x0_feat = merge(shard_batch(enc_grid[:n0], batch_size), local, pad_hi)
+    x1_feat = merge(shard_batch(enc_grid[n0:n0 + n1], batch_size), local, pad_lo)
+    x2_feat = shard_batch(enc_grid[n0 + n1:], batch_size)
 
-    global_tokens, _ = vit.forward_features(cfg, params["image_encoder"], x2)
+    global_tokens, _ = vit.forward_features(cfg, params["image_encoder"], shard_batch(x2))
     global_feat = reshape_feature(cfg, global_tokens)
 
     latent0 = _upsample_block(params["upsample_latent0"], latent0)

@@ -1,4 +1,4 @@
-"""DINOv2-style ViT-L/16 (port of ``matrix_eyes_tpu/models/vit.py``, one device).
+"""DINOv2-style ViT-L/16 (port of ``matrix_eyes_tpu/models/vit.py``).
 
 Block parameters stay stacked along a leading layer axis, as the JAX
 package keeps them; the layer loop indexes them. Attention runs through
@@ -16,6 +16,14 @@ Under ``--dtype int8`` the blocks hold int8 matmul weights (``qkv_qw``,
 int8 x int8 -> int32 products on dynamically quantized activations, proj
 and fc2 on their weights dequantized to the compute dtype, which the
 (unquantized) norm parameters carry.
+
+Under a model-parallel mesh (``parallel.sharding``) the blocks hold the
+head-group layout (``qkv_gw``/``qkv_gb``, int8 ``qkv_gqw``/``qkv_gsw``)
+cut to this rank: qkv and fc1 run on this rank's columns and the
+attention kernel on its ``num_heads / k`` heads with no collective; proj
+and fc2 run on this rank's rows and their f32 partial products are
+all-reduced before the bias. Grouped parameters outside the mesh they were
+cut for raise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,24 +36,67 @@ from matrix_eyes_tpu_torch.config import ModelConfig
 from matrix_eyes_tpu_torch.ops import nn
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
 from matrix_eyes_tpu_torch.ops.quant import dequantize_weight, is_quantized_blocks, qlinear
+from matrix_eyes_tpu_torch.parallel.collectives import all_reduce_sum
+from matrix_eyes_tpu_torch.parallel.sharding import active_model_parallel
 
 Params = Dict[str, torch.Tensor]
 
 
+def _tp_mesh(cfg: ModelConfig, p: Params):
+    """The mesh a head-group (tensor-parallel) block runs on, None for a
+    checkpoint-layout block; raises where the layout and the enclosing
+    mesh disagree. The degree the columns were permuted for is read from
+    the grouped bias's width, 3C / k, on every shard of it."""
+    mesh = active_model_parallel()
+    if "qkv_gw" not in p and "qkv_gqw" not in p:
+        if mesh is not None:
+            raise ValueError(f"checkpoint-layout qkv parameters under a model-parallel mesh "
+                             f"(degree {mesh.model}): cut them with parallel.shard_params")
+        return None
+    k_perm = 3 * cfg.embed_dim // p["qkv_gb"].shape[-1]
+    if mesh is None or mesh.model != k_perm or cfg.num_heads % k_perm != 0:
+        key = "quantized qkv parameters (qkv_gqw" if "qkv_gqw" in p else "qkv parameters (qkv_gw"
+        raise ValueError(
+            f"TP-grouped {key}, permuted for model-parallel degree {k_perm}) require the "
+            f"matching patch_sharded mesh context (active: "
+            f"{'none' if mesh is None else mesh.model})")
+    if p["qkv_gb"].shape[-2] != 1:
+        raise ValueError("TP-grouped qkv parameters hold every head group: cut them for this "
+                         "rank with parallel.shard_params")
+    return mesh
+
+
+def _row_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
+    """A linear whose input features are split over the model axis: each
+    rank's f32 partial product, summed over the ranks in f32, then the bias
+    once and one rounding to ``x.dtype``."""
+    if mesh is None:
+        return nn.linear(x, w, b)
+    y = all_reduce_sum(nn.matmul_f32(x, w), mesh, "model")
+    return (y + b.float()).to(x.dtype)
+
+
 def block_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """One pre-norm transformer block; ``p`` holds one layer's parameters."""
+    """One pre-norm transformer block; ``p`` holds one layer's parameters
+    (under tensor parallelism this rank's columns of qkv and fc1 and rows
+    of proj and fc2)."""
     quantized = is_quantized_blocks(p)
+    mesh = _tp_mesh(cfg, p)
+    k = 1 if mesh is None else mesh.model
+    qkv_key = "qkv_g" if mesh is not None else "qkv_"
+    b_qkv = p["qkv_gb"].reshape(-1) if mesh is not None else p["qkv_b"]
     # int8: the activations' compute dtype is the norm parameters'
-    wdt = p["norm1_scale"].dtype if quantized else p["qkv_w"].dtype
+    wdt = p["norm1_scale"].dtype if quantized else p[qkv_key + "w"].dtype
     scale = 1.0 / (cfg.head_dim ** 0.5)
     h = nn.layer_norm(x, p["norm1_scale"], p["norm1_bias"], cfg.layer_norm_eps).to(wdt)
     if quantized:
-        qkv = qlinear(h, p["qkv_qw"], p["qkv_sw"], p["qkv_b"])
+        qkv = qlinear(h, p[qkv_key + "qw"], p[qkv_key + "sw"], b_qkv)
     else:
-        qkv = nn.linear(h, p["qkv_w"], p["qkv_b"])  # (B, N, 3C)
-    o = attention_qkv(qkv, cfg.num_heads, scale)
+        qkv = nn.linear(h, p[qkv_key + "w"], b_qkv)  # (B, N, 3C / k)
+    # under TP this rank's qkv columns are the whole [q|k|v] of its H / k heads
+    o = attention_qkv(qkv, cfg.num_heads // k, scale)
     proj_w = dequantize_weight(p["proj_qw"], p["proj_sw"], wdt) if quantized else p["proj_w"]
-    o = nn.linear(o, proj_w, p["proj_b"])
+    o = _row_linear(o, proj_w, p["proj_b"], mesh)
     x = x + o.to(x.dtype) * p["ls1"].to(x.dtype)
 
     h = nn.layer_norm(x, p["norm2_scale"], p["norm2_bias"], cfg.layer_norm_eps).to(wdt)
@@ -55,7 +106,7 @@ def block_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = nn.linear(h, p["fc1_w"], p["fc1_b"])
     h = nn.gelu(h)
     fc2_w = dequantize_weight(p["fc2_qw"], p["fc2_sw"], wdt) if quantized else p["fc2_w"]
-    h = nn.linear(h, fc2_w, p["fc2_b"])
+    h = _row_linear(h, fc2_w, p["fc2_b"], mesh)
     return x + h.to(x.dtype) * p["ls2"].to(x.dtype)
 
 

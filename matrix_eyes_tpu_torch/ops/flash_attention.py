@@ -111,12 +111,15 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     attention_qkv.launches += 1
     attention_qkv.launches_by_dtype[qkv.dtype] += 1
     attention_qkv.launches_by_batch[B] += 1
+    attention_qkv.launches_by_shape[(B, N, num_heads, D, str(qkv.dtype).split(".")[-1])] += 1
     return out
 
 
 attention_qkv.launches = 0
 attention_qkv.launches_by_dtype = collections.Counter()
 attention_qkv.launches_by_batch = collections.Counter()  # B = 35 per photo in the patch ViT
+# (B, N, heads, D, dtype): under tensor parallelism a rank runs num_heads / model heads
+attention_qkv.launches_by_shape = collections.Counter()
 
 
 def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -25,11 +25,11 @@ import torch
 
 from matrix_eyes_tpu_torch.models.spec import tree_map
 
-# The bf16 group: exactly the ViT block matmul weights. The biases stay
-# f32: ``nn.linear`` adds them to the f32 product before its one rounding.
-# (The JAX package's head-group tensor-parallel key ``qkv_gw`` arrives
-# with the port's multi-GPU path.)
-MIXED_BF16_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
+# The bf16 group: exactly the ViT block matmul weights, the head-group
+# tensor-parallel qkv (``parallel.sharding._tp_permute_qkv`` renames qkv_w)
+# among them. The biases stay f32: ``nn.linear`` adds them to the f32
+# product before its one rounding.
+MIXED_BF16_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w", "qkv_gw")
 
 
 def is_mixed_bf16_leaf(path: Sequence[Any]) -> bool:

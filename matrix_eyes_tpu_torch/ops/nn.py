@@ -42,6 +42,21 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as an f32 product, not rounded to ``x.dtype``: the partial sums
+    of a row-split linear, which the ranks add in f32 before its bias and
+    its one rounding (the JAX package's dot with an f32 result, reduced by
+    GSPMD in f32)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32:
+        y = torch.mm(x2, w)
+    elif x.is_cuda:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:  # the CPU has no out_dtype GEMM: exact products of the upcast operands
+        y = torch.mm(x2.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis, statistics in f32."""
     y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)

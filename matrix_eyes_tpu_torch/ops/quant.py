@@ -1,9 +1,8 @@
 """Int8 quantized linear layers for ``--dtype int8``.
 
-A torch copy of ``matrix_eyes_tpu/ops/quant.py`` (one device; the JAX
-package's tensor-parallel ``qkv_gqw`` layout arrives with the port's
-multi-GPU path). The scheme is standard post-training dynamic
-quantization:
+A torch copy of ``matrix_eyes_tpu/ops/quant.py``, with the tensor-parallel
+head-group keys (``qkv_gqw``/``qkv_gsw``, ``parallel.sharding``). The
+scheme is standard post-training dynamic quantization:
 
 * weights: symmetric per output channel, ``scale_j = max_i |w_ij| / 127``,
   int8 codes beside an f32 scale vector, quantized once at load time
@@ -97,7 +96,7 @@ def dequantize_weight(qw: torch.Tensor, w_scale: torch.Tensor,
 
 
 def is_quantized_blocks(blocks: Dict[str, Any]) -> bool:
-    return "qkv_qw" in blocks
+    return "qkv_qw" in blocks or "qkv_gqw" in blocks
 
 
 def _q_transform(blocks: Dict[str, Any]) -> Dict[str, Any]:

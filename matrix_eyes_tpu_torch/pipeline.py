@@ -13,6 +13,7 @@ weights); writing is the per-image 'output' stage.
 
 from __future__ import annotations
 
+import math
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -26,6 +27,7 @@ from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.progress import SplitProgressListener
 from matrix_eyes_tpu_torch.config import ModelConfig, RuntimeConfig, configure_precision
 from matrix_eyes_tpu_torch.models import depth_pro
+from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
 from matrix_eyes_tpu_torch.output.depthmap import (
     DepthMap,
@@ -71,6 +73,39 @@ def _stage_error(msg: str, err: Exception, stage: str) -> MatrixEyesError:
     return out
 
 
+# what rank 0 tells the other ranks of a mesh before each forward
+_RUN, _SKIP, _ABORT = 1, 0, -1  # forward / no image decoded / preprocess failed
+
+
+def _share_inputs(mesh, status: int, img: Optional[torch.Tensor],
+                  f_norms: Sequence[Optional[float]], shape: Tuple[int, ...],
+                  dtype: torch.dtype, device: torch.device):
+    """Rank 0's status, focal lengths and preprocessed image batch, on every
+    rank of ``mesh`` (rank 0 decodes and preprocesses; the others pass
+    None and len(f_norms) placeholders). Returns (status, img, f_norms)."""
+    from matrix_eyes_tpu_torch.parallel.collectives import broadcast
+
+    header = torch.tensor([status] + [math.nan if f is None else f for f in f_norms],
+                          dtype=torch.float64, device=device)
+    broadcast(header, mesh)
+    status = int(header[0].item())
+    if status != _RUN:
+        return status, None, None
+    if img is None:
+        img = torch.empty(shape, dtype=dtype, device=device)
+    broadcast(img, mesh)
+    return status, img, [None if math.isnan(v) else v for v in header[1:].tolist()]
+
+
+def _follower_error(status: int) -> MatrixEyesError:
+    """A rank other than 0 stops where rank 0 failed, with rank 0's stage
+    tag; rank 0 prints the message."""
+    err = ReconstructionError("the source image failed on rank 0" if status == _SKIP
+                              else "preprocessing failed on rank 0")
+    err.stage = "load" if status == _SKIP else "model"
+    return err
+
+
 def _wait_for_forward(device: torch.device) -> None:
     """With timings on, end the forward's span when the card is done, so
     that the output stage is not charged with it."""
@@ -91,45 +126,71 @@ def extract_depth(
     runtime: Optional[RuntimeConfig] = None,
     progress=None,
     source: Optional[SourceImage] = None,
+    mesh=None,
 ) -> DepthMap:
     """Full pipeline for one image; returns the DepthMap it wrote.
     ``params`` must already lie on the runtime's device; ``source``, when
     given, is the decoded image and ``source_path`` is not decoded (a
     mesh's vertex colours and texture still refer to it). A stereogram's
-    noise comes from ``runtime.seed``."""
+    noise comes from ``runtime.seed``.
+
+    ``mesh`` (``parallel.make_mesh``; every rank calls this with its own
+    ``parallel.shard_params`` parameters): rank 0 decodes and preprocesses
+    and broadcasts the image and its focal length, every rank runs the
+    sharded forward, and rank 0 alone writes the output."""
     runtime = runtime or RuntimeConfig()
-    device = runtime.resolved_device()
+    device = mesh.device if mesh is not None else runtime.resolved_device()
     dtype = runtime.image_dtype()
     configure_precision()
+    lead = mesh is None or mesh.rank == 0
     pl = SplitProgressListener(progress)
     pl_model, pl_out = pl.split_range(0.9)
     pl_pre, pl_net = pl_model.split_range(0.05)
+    shape = (1, cfg.img_size, cfg.img_size, 3)
 
-    pl_pre.update_message("loading source image")
-    try:
-        with timings.span("decode source image"):
-            src = source if source is not None else load_source_image(source_path,
-                                                                       focal_length_35mm)
-    except Exception as err:
-        raise _stage_error("Failed to load source image", err, "load") from err
-    pl_pre.report_status(1.0)
+    img = f_norm = src = None
+    if lead:
+        pl_pre.update_message("loading source image")
+        try:
+            with timings.span("decode source image"):
+                src = source if source is not None else load_source_image(source_path,
+                                                                           focal_length_35mm)
+        except Exception as err:
+            if mesh is not None:
+                _share_inputs(mesh, _SKIP, None, [None], shape, dtype, device)
+            raise _stage_error("Failed to load source image", err, "load") from err
+        pl_pre.report_status(1.0)
 
-    pl_net.update_message("extracting depth")
+        pl_net.update_message("extracting depth")
+        try:
+            with timings.span("preprocess (device)"):
+                img = preprocess_image(src.rgb, cfg.img_size, dtype, device)
+            f_norm = src.f_norm()
+        except Exception as err:
+            if mesh is not None:
+                _share_inputs(mesh, _ABORT, None, [None], shape, dtype, device)
+            raise _stage_error("Failed to process image", err, "model") from err
+    if mesh is not None:
+        status, img, (f_norm,) = (_share_inputs(mesh, _RUN, img, [f_norm], shape, dtype, device)
+                                  if lead else
+                                  _share_inputs(mesh, _RUN, None, [None], shape, dtype, device))
+        if status != _RUN:
+            raise _follower_error(status)
     try:
-        with timings.span("preprocess (device)"):
-            img = preprocess_image(src.rgb, cfg.img_size, dtype, device)
-        f_norm = src.f_norm()
-        with timings.span("model forward"):
+        with timings.span("model forward"), patch_sharded(mesh):
             if f_norm is not None:
                 inverse_depth = depth_pro.forward_with_fnorm(cfg, params, img, f_norm)[0]
             else:
                 inv, _fov_deg = depth_pro.forward_with_fov(cfg, params, img)
                 inverse_depth = inv[0]
-            depth_map = DepthMap.new(inverse_depth, src.original_size)
+            original_size = src.original_size if lead else (cfg.img_size, cfg.img_size)
+            depth_map = DepthMap.new(inverse_depth, original_size)
             _wait_for_forward(device)
     except Exception as err:
         raise _stage_error("Failed to process image", err, "model") from err
     pl_net.report_status(1.0)
+    if not lead:
+        return depth_map
 
     pl_out.update_message("writing output")
     try:
@@ -155,6 +216,7 @@ def extract_depth_batch(
     stereo_amplitude: float = 1.0 / 16.0,
     runtime: Optional[RuntimeConfig] = None,
     progress=None,
+    mesh=None,
 ) -> None:
     """Many images, one forward per ``batch_size`` photos: the batch rides
     the encoder's pyramid patch axis (35 patches per image). Each image gets
@@ -178,15 +240,34 @@ def extract_depth_batch(
     A failing decode or output skips that image with its stage message;
     the rest still complete, and one ReconstructionError ("N of M images
     failed") ends the run. A preprocess or forward failure is systemic: the
-    finished chunk is written first, then it raises."""
+    finished chunk is written first, then it raises.
+
+    ``mesh``: as in :func:`extract_depth`, per chunk: rank 0 decodes,
+    preprocesses and broadcasts the chunk and its focal lengths, every rank
+    runs the sharded forward (the chunk split over the data axis where it
+    divides ``batch_size``), rank 0 alone writes and reports failures."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     runtime = runtime or RuntimeConfig()
-    device = runtime.resolved_device()
+    device = mesh.device if mesh is not None else runtime.resolved_device()
     dtype = runtime.image_dtype()
     configure_precision()
+    shape = (batch_size, cfg.img_size, cfg.img_size, 3)
     jobs = list(jobs)
     chunks = [jobs[i:i + batch_size] for i in range(0, len(jobs), batch_size)]
+    if mesh is not None and mesh.rank != 0:
+        for _chunk in chunks:
+            status, img, f_norms = _share_inputs(mesh, _RUN, None, [None] * batch_size, shape,
+                                                 dtype, device)
+            if status == _ABORT:
+                raise _follower_error(status)
+            if status == _RUN:
+                try:
+                    with patch_sharded(mesh):
+                        forward_batch(cfg, params, img, f_norms)
+                except Exception as err:
+                    raise _stage_error("Failed to process image", err, "model") from err
+        return
 
     def decode(path: str) -> SourceImage:
         return load_source_image(path, focal_length_35mm)
@@ -243,11 +324,14 @@ def extract_depth_batch(
             if pool is not None and ci + 1 < len(chunks):
                 next_futs = [pool.submit(decode, p) for p, _o in chunks[ci + 1]]
             if not live:
+                if mesh is not None:
+                    _share_inputs(mesh, _SKIP, None, [None] * batch_size, shape, dtype, device)
                 flush_pending()
                 pl_model.report_status(1.0)
                 continue
 
             pl_model.update_message("extracting depth")
+            shared = mesh is None
             try:
                 with timings.span("preprocess (device)"):
                     imgs = [preprocess_image(s.rgb, cfg.img_size, dtype, device)
@@ -256,10 +340,15 @@ def extract_depth_batch(
                     img = torch.cat(imgs + imgs[-1:] * pad)
                 f_norms = [s.f_norm() for _job, s in live]
                 f_norms += f_norms[-1:] * pad
-                with timings.span("model forward"):
+                if not shared:
+                    shared = True
+                    _share_inputs(mesh, _RUN, img, f_norms, shape, dtype, device)
+                with timings.span("model forward"), patch_sharded(mesh):
                     inv = forward_batch(cfg, params, img, f_norms)
                     _wait_for_forward(device)
             except Exception as err:
+                if not shared:  # the other ranks wait for this chunk
+                    _share_inputs(mesh, _ABORT, None, [None] * batch_size, shape, dtype, device)
                 raise _stage_error("Failed to process image", err, "model") from err
             pl_model.report_status(1.0)
 

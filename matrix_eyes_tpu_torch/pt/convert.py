@@ -307,7 +307,10 @@ def place_params(params: Dict[str, Any], device, dtype: torch.dtype = torch.floa
                  quantize_int8: bool = False, mixed_bf16: bool = False) -> Dict[str, Any]:
     """The parameter tree of a dtype policy on ``device`` from a canonical
     f32 tree (numpy arrays or tensors): ``dtype`` alone (f32, bf16, f16),
-    or bf16 with ``quantize_int8`` or ``mixed_bf16`` (module docstring)."""
+    or bf16 with ``quantize_int8`` or ``mixed_bf16`` (module docstring).
+    For a device mesh, place on the CPU: ``parallel.shard_params`` then
+    cuts the policy's tree (int8 codes and scales included) and moves each
+    rank's part to its card."""
     _check_policy(dtype, quantize_int8, mixed_bf16)
 
     def leaf(_path, arr):

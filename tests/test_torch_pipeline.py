@@ -134,7 +134,7 @@ def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     ["--focal-length", "a.jpg", "b.png"],          # flag without value
     ["--focal-length=abc", "a.jpg", "b.png"],      # bad value
     ["--dtype=int4", "a.jpg", "b.png"],            # unknown dtype
-    ["--devices=2", "a.jpg", "b.png"],             # flag not ported
+    ["--devices=0", "a.jpg", "b.png"],             # mesh dimension below 1
     ["--mesh=bogus", "a.jpg", "b.obj"],            # unknown vertex mode
     ["--batch-size=0", "a.jpg", "b.png"],          # batch size below 1
     ["--batch-size=x", "a.jpg", "b.png"],          # bad value
@@ -142,6 +142,7 @@ def test_cli_missing_checkpoint_exits_1(workdir, capsys):
     ["--seed=abc", "a.jpg", "b.png"],              # bad value
     ["--resize-scale=x", "a.jpg", "b.png"],        # bad value
     ["--image-output-format=bogus", "a.jpg", "b.png"],  # unknown output format
+    ["--devices=2x", "a.jpg", "b.png"],            # bad mesh shape
 ])
 def test_cli_bad_arguments_exit_2(argv):
     out, err = io.StringIO(), io.StringIO()
@@ -213,7 +214,8 @@ def test_port_imports_no_jax():
             "             'output.writers', 'output.rust_format', 'errors', 'progress',\n"
             "             'io.image', 'ops.viridis_data', 'native.lanczos',\n"
             "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed',\n"
-            "             'serve', 'pt.loader', 'debug'):\n"
+            "             'serve', 'pt.loader', 'debug', 'parallel.sharding',\n"
+            "             'parallel.collectives', 'parallel.launch', 'parallel.checks'):\n"
             "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"
