@@ -113,15 +113,40 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    here); MID 2x2 on the card against the same mesh on the CPU under f32
    (phase 6's tolerance) and int8 and mixed (phase 13's: the canonical
    inverse depth and the FOV each within 2e-2); no rank loads jax. Phase 3 holds attention_qkv at the
-   per-shard shapes (``PER_SHARD_ATTENTION``).
+   per-shard shapes (``PER_SHARD_ATTENTION``);
+17. the CUDA-graph cache (``aot.call_cached``) on phase 4's weights and
+   photo: preprocess, fwd_fov, fwd_fnorm, fwd_mixed_b4 and the two renders
+   under bf16, and fwd_fov under f32, mixed and int8, each called eagerly
+   (``MATRIX_EYES_AOT=off``) and then three times through the cache
+   (warm-up, capture, replay): the replay bit-equal to the eager call (or
+   within its policy's gate, the difference printed), 72 attention and 24
+   conv3x3 launches per replayed forward; the resolved stereogram PNG
+   written eagerly and three times through the cache, byte for byte the
+   same, one linker_scan launch each; graphs against eager in turns: the
+   forward's wall (CUDA events), host time and device time (torch.profiler)
+   per call under bf16, mixed, int8 and f32 at one photo and bf16 at four;
+   the captures' cost and the graph pool's bytes; a clone's cost;
+   ``cli.main(["--profile=DIR", ...])`` over three photos whose forwards
+   replay, its trace holding their kernels; and the server burst with
+   graphs against eager (``scripts/torch_serve_burst.py --compare-aot``,
+   two rounds in turns). Phase 15 also times the start to the first PNG
+   with and without the warm-up thread (``aot.prefetch_async``).
+
+Phases 4-16 run with the graph cache on, its default: a program's first
+call with a signature runs eagerly, the second runs eagerly once more and
+captures, later ones replay. So where a phase runs a path twice, its first
+wall is the eager call and its second includes the capture; a path whose
+weights are loaded anew on each run (the CLI's policy and warm-start runs)
+runs eagerly each time.
 
 Every path's counts are read from its own first run, each counter set to 0
 just before it. In the summary, ``launches_by_path`` gives each kernel's
-count on each of the seventeen paths (depth-map PNG, the same in f32,
+count on each path (depth-map PNG, the same in f32,
 compact PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4
 directory, the depth-map PNG under --dtype f16, mixed and int8, the served
-depth-map PNG, the eight batched /v1/depth requests, the warm start, and
-rank 0's forward on the meshes NCCL 1x1, 1x2, 2x1 and 2x2),
+depth-map PNG, the eight batched /v1/depth requests, the warm start,
+rank 0's forward on the meshes NCCL 1x1, 1x2, 2x1 and 2x2 and the entry
+points at 2x2, and phase 17's replayed forward and replayed stereogram),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
@@ -704,8 +729,8 @@ def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
         walls.append(time.perf_counter() - t0)
         counts.append(c)
         conv_shapes.append(shapes)
-    print(f"[{phase}] extract_depth ({name}) wall s: first {walls[0]:.3f}, second "
-          f"{walls[1]:.3f}; launches per run: {counts}")
+    print(f"[{phase}] extract_depth ({name}) wall s: first {walls[0]:.3f}, second (captures "
+          f"its graphs) {walls[1]:.3f}; launches per run: {counts}")
     # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan on this path
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
               "attention_flash": 0}
@@ -1041,15 +1066,22 @@ def _batch_runs(dev, params, photos: list) -> dict:
         require(rc == 0, f"cli.main({argv}) exited {rc}")
         return time.perf_counter() - t0
 
-    mixed = []  # has_f of every mixed-focal forward of the batch-4 run
-    real_mixed = depth_pro.forward_with_mixed_fnorm
-    depth_pro.forward_with_mixed_fnorm = lambda *a: (
-        mixed.append(np.asarray(a[4]).tolist()) or real_mixed(*a))
+    # has_f of every mixed-focal forward of the batch-4 run, read where the
+    # focal lengths are still on the host (the forward is a CUDA graph)
+    mixed = []
+    real_batch = pipeline.forward_batch
+
+    def forward_batch(cfg_, params_, img, f_norms, mesh=None):
+        if any(f is None for f in f_norms):
+            mixed.append([f is not None for f in f_norms])
+        return real_batch(cfg_, params_, img, f_norms, mesh)
+
+    pipeline.forward_batch = forward_batch
     t0 = time.perf_counter()
     try:
         _, counts, shapes = counted_run(lambda: run_dir(4))
     finally:
-        depth_pro.forward_with_mixed_fnorm = real_mixed
+        pipeline.forward_batch = real_batch
     first = time.perf_counter() - t0
     expect = {"attention_qkv": 2 * 3 * cfg.depth, "conv3x3": 48, "linker_scan": 0,
               "attention_flash": 0}
@@ -1497,6 +1529,86 @@ def _warm_start_policy(cfg, canonical: dict, policy: str, pt: str, photo: str) -
     return counts
 
 
+def _start_to_png(canonical: dict, pt: str, photo: str) -> None:
+    """Start to the first PNG under bf16 with the warm-up thread
+    (``aot.prefetch_async``, the default) and without it
+    (``MATRIX_EYES_AOT=off``): cold (``--convert-checkpoints``, the caches
+    deleted first) in this process once without it (phase 15's cold run is
+    the one with it); warm from the caches in this process and in a fresh
+    ``python -m matrix_eyes_tpu_torch`` process (which reads the caches
+    alone), in turns (with, without, without, with)."""
+    import subprocess as sp
+
+    from matrix_eyes_tpu_torch import aot, cli
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.pt import convert
+
+    def read(path, parts=convert.PARTS, cfg_=None):
+        return DEPTH_PRO, {part: canonical[part] for part in parts}
+
+    def refuse(*_a, **_k):
+        raise RuntimeError("the warm start read the .pt")
+
+    out = os.path.join(OUT_DIR, "start_to_png.png")
+    d = os.path.dirname(pt)
+    for name in os.listdir(d):
+        if ".torch.f16." in name or "-torch-" in name:
+            os.remove(os.path.join(d, name))
+    real_read = convert.read_checkpoint
+    walls = {"cold_without": None, "warm": {"with": [], "without": []},
+             "fresh_process": {"with": [], "without": []}}
+    try:
+        convert.read_checkpoint = read
+        with aot.disabled():
+            t0 = time.perf_counter()
+            require(cli.main(["--convert-checkpoints", f"--checkpoint-path={pt}", photo,
+                              out]) == 0, "cold start without the warm-up thread failed")
+            walls["cold_without"] = time.perf_counter() - t0
+        convert.read_checkpoint = refuse
+        for mode in ("with", "without", "without", "with"):
+            with contextlib.ExitStack() as stack:
+                if mode == "without":
+                    stack.enter_context(aot.disabled())
+                t0 = time.perf_counter()
+                require(cli.main([f"--checkpoint-path={pt}", photo, out]) == 0,
+                        f"warm start {mode} the warm-up thread failed")
+                walls["warm"][mode].append(time.perf_counter() - t0)
+    finally:
+        convert.read_checkpoint = real_read
+    stages = {"with": [], "without": []}
+    for mode in ("with", "without", "without", "with"):
+        env = dict(os.environ, MATRIX_EYES_AOT="on" if mode == "with" else "off",
+                   MATRIX_EYES_TIMINGS="1")
+        t0 = time.perf_counter()
+        proc = sp.run([sys.executable, "-m", "matrix_eyes_tpu_torch", f"--checkpoint-path={pt}",
+                       photo, out], cwd=ROOT, env=env, capture_output=True, text=True,
+                      timeout=300)
+        walls["fresh_process"][mode].append(time.perf_counter() - t0)
+        require(proc.returncode == 0 and _png_size(out) == _png_size(photo),
+                f"a fresh warm start {mode} the warm-up thread exited {proc.returncode}: "
+                f"{proc.stdout[-800:]} {proc.stderr[-800:]}")
+        # the process's stage table (MATRIX_EYES_TIMINGS): where its start goes
+        table = {}
+        for line in proc.stderr.splitlines():
+            name, _, value = line.strip().rpartition("  ")
+            if value.endswith(" s") or " s x" in value:
+                table[name.strip()] = float(value.split(" s")[0])
+        weights = sum(v for k, v in table.items() if k.startswith("weights "))
+        stages[mode].append({"weights": round(weights, 3), **{
+            k: round(table[k], 3) for k in ("decode source image", "preprocess (device)",
+                                            "model forward", "write output", "process total")
+            if k in table}})
+    print(f"[15] start to the first PNG, bf16, with / without the warm-up thread: cold in "
+          f"this process without {walls['cold_without']:.3f} s (with: the cold run above); "
+          f"warm in this process with {[round(w, 3) for w in walls['warm']['with']]} s, without "
+          f"{[round(w, 3) for w in walls['warm']['without']]} s; a fresh process from start to "
+          f"exit with {[round(w, 3) for w in walls['fresh_process']['with']]} s, without "
+          f"{[round(w, 3) for w in walls['fresh_process']['without']]} s")
+    for mode in ("with", "without"):
+        print(f"[15] a fresh process {mode} the warm-up thread, its stage table s: "
+              f"{stages[mode]}")
+
+
 def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
     """Warm start from the port's weight caches (``pt/loader.py``): a
     stand-in .pt gives the stamp and the reader returns the canonical
@@ -1520,6 +1632,7 @@ def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
         f.write(b"stand-in for depth_pro.pt\n")
     try:
         counts = _warm_start_policy(DEPTH_PRO, canonical, "bf16", pt, photo)
+        _start_to_png(canonical, pt, photo)
         free = shutil.disk_usage(d).free
         full = free > 16 * 2**30  # ~1 GiB of int8 and ~2.4 GiB of mixed caches, and copies
         print(f"[15] {free / 2**30:.1f} GiB free on the disk: int8 and mixed at "
@@ -1811,6 +1924,311 @@ def phase_multi_device(dev, src, ref_inv, photos: list) -> dict:
     return counts
 
 
+def _device_ms(fn, calls: int) -> tuple:
+    """torch.profiler over ``calls`` calls of ``fn``: (device ms per call,
+    kernel launches per call, cudaGraphLaunch calls), kernels replayed by a
+    CUDA graph included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, kernels, graph_launches = 0.0, 0, 0
+    for ev in prof.events():
+        if ev.name == "cudaGraphLaunch":
+            graph_launches += 1
+        if str(ev.device_type).endswith("CUDA") and "memcpy" not in ev.name.lower() \
+                and "memset" not in ev.name.lower():
+            us += ev.time_range.elapsed_us()
+            kernels += 1
+    return us / 1000.0 / calls, kernels / calls, graph_launches / calls
+
+
+def _eager_then_graphs(name: str, fn, calls: int = 3) -> tuple:
+    """``fn()`` eagerly (``MATRIX_EYES_AOT=off``), then ``calls`` times through
+    the graph cache (warm-up, capture, replays). Returns (the eager result,
+    the last replay's result, the last replay's launch counts, the walls of
+    the graph calls)."""
+    import torch
+
+    from matrix_eyes_tpu_torch import aot
+
+    with aot.disabled():
+        eager = fn()
+    walls = []
+    for i in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == calls - 1:
+            got, counts, _ = counted_run(fn)
+        else:
+            got = fn()
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    require(name in aot.cache().live(), f"{name}: no graph after {calls} calls")
+    return eager, got, counts, walls
+
+
+def _same(name: str, eager, got, gate: str) -> dict:
+    """A replay against its eager call: bit-equal, or within ``gate``
+    ("bf16" or "f32", compare()'s tolerances) with the difference printed."""
+    import torch
+
+    pairs = list(zip(eager, got)) if isinstance(eager, tuple) else [(eager, got)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    row = {"bit_equal": equal}
+    if not equal:
+        dtype = torch.float32 if gate == "f32" else torch.bfloat16
+        cmp = compare(got if not isinstance(got, tuple) else got[0],
+                      eager if not isinstance(eager, tuple) else eager[0], dtype)
+        row.update(cmp)
+        require(cmp["ok"], f"{name}: the replay leaves the {gate} gate of its eager call: {cmp}")
+    return row
+
+
+def _timed(fn, calls: int) -> dict:
+    """Per call: the wall by CUDA events over ``calls`` calls back to back,
+    and the host's time and CPU time to issue one call on an idle card
+    (each call alone, the card synchronised before it, the wait outside the
+    measure). The host's CPU clock ticks coarsely here: read it as a sum
+    over the calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    issue = cpu = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        fn()
+        issue += time.perf_counter() - t0
+        cpu += time.process_time() - cpu0
+    torch.cuda.synchronize()
+    return {"wall_ms": start.elapsed_time(end) / calls, "issue_ms": issue * 1e3 / calls,
+            "host_cpu_ms": cpu * 1e3 / calls}
+
+
+def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
+    """17: the CUDA-graph cache (``aot.call_cached``) on phase 4's weights
+    and photo: each program of the bf16 path (preprocess, fwd_fov,
+    fwd_fnorm, fwd_mixed_b4, the two renders, the resolved stereogram)
+    and fwd_fov under f32, mixed and int8, replayed against its eager call
+    (``MATRIX_EYES_AOT=off``): bit-equal or within its policy's gate, the
+    replay's launches equal to the eager path's; the stereogram PNG's bytes
+    equal. Then graphs against eager in the same process, in turns: the
+    forward's wall, device time and host time under each policy at B=1 and
+    bf16 at B=4; the capture's cost and the graph pool; a clone's cost;
+    ``--profile`` over a directory whose forwards replay; the server burst
+    (``scripts/torch_serve_burst.py --compare-aot``, two rounds). Returns
+    the replayed depth-map forward's launch counts."""
+    import glob
+
+    import torch
+
+    from matrix_eyes_tpu_torch import aot, cli, pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig, parse_dtype_policy
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.output.depthmap import (
+        DepthMap,
+        ImageOutputFormat,
+        render_depth_map,
+        render_depth_map_grid,
+    )
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    cfg = DEPTH_PRO
+    cache = aot.cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    forward_counts = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
+                      "attention_flash": 0}
+    t_phase = time.perf_counter()
+
+    def preprocess():
+        return pipeline.preprocess_image(src.rgb, cfg.img_size, torch.bfloat16, dev)
+
+    img = preprocess()
+    img4 = torch.cat([img, img.flip(2), img.flip(1), img.flip(1).flip(2)])
+    programs = [
+        ("preprocess", preprocess, {"attention_qkv": 0, "conv3x3": 0}, "bf16"),
+        ("fwd_fov", lambda: pipeline.forward_photo(cfg, params, img, None), forward_counts,
+         "bf16"),
+        ("fwd_fnorm", lambda: pipeline.forward_photo(cfg, params, img, 0.9),
+         {"attention_qkv": 2 * cfg.depth, "conv3x3": 24}, "bf16"),  # no FOV ViT
+        ("fwd_mixed_b4", lambda: pipeline.forward_batch(cfg, params, img4, [None, 0.9, None, 1.2]),
+         forward_counts, "bf16"),
+    ]
+    results = {}
+    for name, fn, want, gate in programs:
+        eager, got, counts, walls = _eager_then_graphs(name, fn)
+        row = _same(name, eager, got, gate)
+        row.update(walls_s=walls, launches=counts)
+        results[name] = row
+        require(all(counts[k] == v for k, v in want.items()),
+                f"{name}: a replay launched {counts}, expected {want}")
+        print(f"[17] {name} bf16: replay bit-equal to eager: {row['bit_equal']}; walls s "
+              f"(warm-up, capture, replay) {[round(w, 4) for w in walls]}; replay launches "
+              f"{counts}")
+    depth = DepthMap.new(pipeline.forward_photo(cfg, params, img, None), src.original_size)
+    for name, fn in (("render_depthmap_grid",
+                      lambda: aot.call_cached("render_depthmap_grid", render_depth_map_grid,
+                                              (depth.data,))),
+                     ("render_depthmap",
+                      lambda: aot.call_cached("render_depthmap", render_depth_map,
+                                              (depth.data, 3024, 4032)))):
+        eager, got, counts, walls = _eager_then_graphs(name, fn)
+        results[name] = _same(name, eager, got, "bf16")
+        require(results[name]["bit_equal"], f"{name}: the replay's pixels differ")
+        print(f"[17] {name}: replay bit-equal to eager: True; walls s "
+              f"{[round(w, 4) for w in walls]}")
+    # the resolved stereogram through the user's entry: a PNG's bytes
+    pngs = []
+    for i in range(4):
+        out = os.path.join(OUT_DIR, f"graphs_stereo_{i}.png")
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                stack.enter_context(aot.disabled())
+            _, counts, _ = counted_run(lambda: depth.output_image(
+                out, "synthetic", image_format=ImageOutputFormat.STEREOGRAM, amplitude=0.1,
+                seed=STEREO_SEED))
+        with open(out, "rb") as f:
+            pngs.append(f.read())
+        require(counts["linker_scan"] == 1, f"stereogram call {i}: {counts}")
+        stereo_counts = counts
+    require("stereogram" in cache.live(), "the resolved stereogram has no graph")
+    require(all(p == pngs[0] for p in pngs), "a replayed stereogram PNG differs from eager")
+    print(f"[17] stereogram (resolved PNG, amplitude 0.1): eager and three graph calls write "
+          f"the same {len(pngs[0])} bytes; linker_scan 1 launch per call")
+
+    # fwd_fov under the other policies
+    trees = {"bf16": params, "f32": canonical}
+    for policy in ("mixed", "int8"):
+        dtype, q8, mixed = parse_dtype_policy(policy)
+        trees[policy] = place_params(canonical, dev, dtype, quantize_int8=q8, mixed_bf16=mixed)
+    images = {}
+    for policy in ("f32", "mixed", "int8"):
+        dtype, q8, mixed = parse_dtype_policy(policy)
+        image_dtype = RuntimeConfig(dtype, device=dev, quantize_int8=q8,
+                                    mixed_bf16=mixed).image_dtype()
+        images[policy] = pipeline.preprocess_image(src.rgb, cfg.img_size, image_dtype, dev)
+        eager, got, counts, walls = _eager_then_graphs(
+            "fwd_fov", lambda: pipeline.forward_photo(cfg, trees[policy], images[policy], None))
+        row = _same(f"fwd_fov {policy}", eager, got, "f32" if policy == "f32" else "bf16")
+        row.update(walls_s=walls, launches=counts)
+        results[f"fwd_fov_{policy}"] = row
+        require(counts == forward_counts, f"fwd_fov {policy}: a replay launched {counts}")
+        print(f"[17] fwd_fov {policy}: replay bit-equal to eager: {row['bit_equal']}"
+              f"{'' if row['bit_equal'] else ' (max_rel ' + format(row['max_rel_err'], '.3e') + ')'}"
+              f"; walls s {[round(w, 4) for w in walls]}; replay launches {counts}")
+    images["bf16"] = img
+    print(f"[17] checks {time.perf_counter() - t_phase:.1f} s; graphs captured (name, s, pool "
+          f"growth MiB): {[(n, round(s, 4), round(b / 2**20, 1)) for n, s, b in cache.captured]}")
+
+    # graphs against eager, in turns (graphs, eager, eager, graphs)
+    cells = [("bf16", 1, 10), ("mixed", 1, 5), ("int8", 1, 5), ("f32", 1, 3), ("bf16", 4, 3)]
+    timing = {}
+    for policy, batch, calls in cells:
+        if batch == 1:
+            def fwd():
+                return pipeline.forward_photo(cfg, trees[policy], images[policy], None)
+        else:
+            def fwd():
+                return pipeline.forward_batch(cfg, trees[policy], img4, [None] * 4)
+        fwd()
+        fwd()  # the graph exists from here on
+        runs = {"graphs": [], "eager": []}
+        for mode in ("graphs", "eager", "eager", "graphs"):
+            with contextlib.ExitStack() as stack:
+                if mode == "eager":
+                    stack.enter_context(aot.disabled())
+                runs[mode].append(_timed(fwd, calls))
+        dev_ms = {}
+        for mode in ("graphs", "eager"):
+            with contextlib.ExitStack() as stack:
+                if mode == "eager":
+                    stack.enter_context(aot.disabled())
+                dev_ms[mode] = _device_ms(fwd, 2)
+        cell = f"{policy}_b{batch}"
+        timing[cell] = {"runs": runs, "device": dev_ms}
+        for mode in ("graphs", "eager"):
+            r = runs[mode]
+            print(f"[17] {cell} {mode}: wall ms {[round(x['wall_ms'], 3) for x in r]}, host "
+                  f"issue ms {[round(x['issue_ms'], 3) for x in r]}, host CPU ms "
+                  f"{[round(x['host_cpu_ms'], 2) for x in r]}; device ms "
+                  f"{dev_ms[mode][0]:.3f} in {dev_ms[mode][1]:.0f} kernels, "
+                  f"{dev_ms[mode][2]:.0f} graph launches per call")
+    # a replay's clones: the forward's (1, S, S) f32 and a 12 MP u8 render
+    for shape, dtype in (((1, cfg.img_size, cfg.img_size), torch.float32),
+                         ((3024, 4032, 3), torch.uint8)):
+        t = torch.zeros(shape, dtype=dtype, device=dev)
+        ms = time_ms(lambda: t.clone(), 20)
+        print(f"[17] a replay's clone of {tuple(shape)} {str(dtype)[6:]}: {ms * 1e3:.1f} us")
+    mem = cache.backend.memory(dev)
+    print(f"[17] graph pool {mem / 2**30:.3f} GiB for {len(cache.live())} live graphs "
+          f"{cache.live()}; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+    # --profile over three photos whose forwards replay a graph
+    pdir = os.path.join(OUT_DIR, "profile_photos")
+    tdir = os.path.join(OUT_DIR, "profile_trace")
+    odir = os.path.join(OUT_DIR, "profile_out")
+    for d in (pdir, tdir, odir):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    for i in range(3):
+        shutil.copy(photos[0], os.path.join(pdir, f"p{i}.png"))
+    with answered_with(params):
+        _, counts, _ = counted_run(lambda: require(
+            cli.main([f"--profile={tdir}", pdir, odir]) == 0, "cli.main --profile failed"))
+    traces = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    require(len(traces) == 1, f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    attn = sum("attention_wgmma_kernel" in k for k in kernels)
+    replays = sum(e.get("name") == "cudaGraphLaunch" for e in events)
+    print(f"[17] --profile over 3 photos: {os.path.getsize(traces[0])} bytes, {len(kernels)} "
+          f"kernel events, {attn} attention_wgmma (48 a forward), {replays} cudaGraphLaunch; "
+          f"launches {counts}")
+    require(counts["attention_qkv"] == 3 * 72 and attn == 3 * 48 and replays > 0,
+            "the --profile trace misses the kernels of the replayed graphs")
+
+    # the server burst, graphs against eager
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_serve_burst
+
+    from matrix_eyes_tpu_torch import api
+    from PIL import Image
+
+    photo = os.path.join(OUT_DIR, "graphs_photo.jpg")
+    Image.fromarray(src.rgb).save(photo, quality=95)
+    with answered_with(params):
+        me = api.MatrixEyes("phase-4 weights")
+    report = torch_serve_burst.main([
+        "--photo", photo, "--max-batch", "4", "--requests", "16", "--concurrency", "8",
+        "--compare-aot", "--rounds", "2", "--out", os.path.join(OUT_DIR, "graphs_burst.json")],
+        session=me)
+    for run in report["runs"]:
+        for mode in ("batched", "serialized"):
+            r = run[mode]
+            print(f"[17] burst {r['programs']}, --max-batch={r['max_batch']}: "
+                  f"{r['requests_per_s']:.3f} requests/s; p50 {r['latency_s']['p50']:.3f} s, "
+                  f"p95 {r['latency_s']['p95']:.3f} s; idle {r['idle_latency_s']['median']:.3f} s;"
+                  f" batch sizes {r['batch_sizes']}")
+    del me, trees, params
+    torch.cuda.empty_cache()
+    print(f"[17] phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return {"graphs_depthmap_replay": results["fwd_fov"]["launches"],
+            "graphs_stereogram_replay": stereo_counts}
+
+
 def main() -> int:
     import torch
 
@@ -1854,9 +2272,10 @@ def main() -> int:
     phase_policies_mid(dev)
     by_path["serve"], by_path["serve_batch4"] = phase_serve(dev, canonical, src, photos)
     by_path["warm_start"] = phase_warm_start(dev, canonical, photos[0])
+    by_path.update(phase_multi_device(dev, src, inv_bf16, photos))
+    by_path.update(phase_graphs(dev, canonical, src, photos))
     del canonical
     torch.cuda.empty_cache()
-    by_path.update(phase_multi_device(dev, src, inv_bf16, photos))
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 

@@ -31,10 +31,14 @@ from matrix_eyes_tpu_torch.config import (
     parse_dtype_policy,
 )
 from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
-from matrix_eyes_tpu_torch.models import depth_pro
 from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat, VertexMode
 from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
-from matrix_eyes_tpu_torch.pipeline import extract_depth_batch, forward_batch, preprocess_image
+from matrix_eyes_tpu_torch.pipeline import (
+    extract_depth_batch,
+    forward_batch,
+    forward_photo,
+    preprocess_image,
+)
 from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
 
 Image = Union[str, np.ndarray, SourceImage]
@@ -98,12 +102,7 @@ class MatrixEyes:
     def depth_map(self, image: Image, focal_length_35mm: Optional[float] = None) -> DepthMap:
         """Run the network on one image; returns the DepthMap on the device."""
         src = self._load(image, focal_length_35mm)
-        img = self._preprocess(src)
-        f_norm = src.f_norm()
-        if f_norm is not None:
-            inv = depth_pro.forward_with_fnorm(self.cfg, self.params, img, f_norm)[0]
-        else:
-            inv = depth_pro.forward_with_fov(self.cfg, self.params, img)[0][0]
+        inv = forward_photo(self.cfg, self.params, self._preprocess(src), src.f_norm())
         return DepthMap.new(inv, src.original_size)
 
     def inverse_depth(self, image: Image,
@@ -146,7 +145,7 @@ class MatrixEyes:
         params = self._params_for_mesh(mesh)
         with patch_sharded(mesh):
             return forward_batch(self.cfg, params, torch.cat(imgs + imgs[-1:] * pad),
-                                 f_norms + f_norms[-1:] * pad)
+                                 f_norms + f_norms[-1:] * pad, mesh)
 
     def depth_maps(self, sources: Sequence[SourceImage],
                    pad_to_pow2: bool = False) -> List[DepthMap]:

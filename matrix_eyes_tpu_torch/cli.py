@@ -15,14 +15,21 @@ writes the weight caches beside the checkpoint (``pt/loader.py``), which
 later runs load without reading the ``.pt``. ``--devices=N|DATAxMODEL``
 runs the whole pipeline sharded over a mesh of N = DATA x MODEL cards, one
 process per card (``parallel/``), from this one command: rank 0 writes the
-output and the command exits with its code. Flags of the JAX package that
-the port does not run (``--no-flash-attention``, ``--profile``) exit 2
-with a message saying so. ``MATRIX_EYES_TIMINGS=1`` prints a stage table
-to stderr on exit.
+output and the command exits with its code. ``--profile=DIR`` writes a
+``torch.profiler`` trace of a one-device run (host and card) into DIR
+(``--devices`` ranks are processes of their own and are not traced). The JAX
+package's ``--no-flash-attention`` exits 2 with a message saying so: the
+port has no kill switch. ``MATRIX_EYES_TIMINGS=1`` prints a stage table to
+stderr on exit.
+
+The CUDA context and the kernel libraries are made ready on a background
+thread while the checkpoint loads (``aot.prefetch_async``);
+``MATRIX_EYES_AOT=off`` turns that off with the CUDA graphs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from dataclasses import dataclass
@@ -49,10 +56,11 @@ Options:
       --seed=<SEED>                       Stereogram noise seed [default: 0]
       --batch-size=<N>                    Images per forward in directory mode [default: 1]
       --devices=<N|DATAxMODEL>            Shard over N cards: DATA over the patch batch, MODEL over the ViT blocks [default: 1]
+      --profile=<DIR>                     Write a torch.profiler trace of the run to DIR
       --help                              Print help"""
 
-# flags of the JAX package's CLI that the port does not run yet
-_NOT_PORTED = ("--no-flash-attention", "--profile")
+# the JAX package's kill switch of its attention kernel: the port has none
+_NOT_PORTED = ("--no-flash-attention",)
 
 
 @dataclass
@@ -68,6 +76,7 @@ class Args:
     batch_size: int = 1
     devices: Optional[Tuple[int, int]] = None  # (data, model)
     convert_checkpoints: bool = False
+    profile_dir: Optional[str] = None
     img_src: str = ""
     img_out: str = ""
 
@@ -101,7 +110,7 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
                 raise SystemExit(0)
             name = arg.split("=", 1)[0]
             if name in _NOT_PORTED:
-                raise _fail_usage(f"Argument {name} is not supported by the PyTorch port yet",
+                raise _fail_usage(f"Argument {name} is not supported by the PyTorch port",
                                   stderr, stdout)
             if "=" not in arg:
                 raise _fail_usage(f"Option flag {arg} has no value", stderr, stdout)
@@ -129,6 +138,8 @@ def parse_args(argv: List[str], stdout=None, stderr=None) -> Args:
                 args.devices = parse_value(name, value, _mesh_shape)
             elif name == "--checkpoint-path":
                 args.checkpoint_path = value
+            elif name == "--profile":
+                args.profile_dir = value
             elif name == "--dtype":
                 from matrix_eyes_tpu_torch.config import parse_dtype_policy
 
@@ -229,6 +240,10 @@ def run(args: Args, progress=None, device=None, mesh=None) -> None:
     if progress is not None:
         progress.update_message("reading checkpoint")
     if mesh is None:
+        from matrix_eyes_tpu_torch import aot
+
+        # the context and the kernel libraries get ready during the load
+        aot.prefetch_async(runtime.resolved_device())
         cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
                                       device=runtime.resolved_device(),
                                       convert_checkpoints=args.convert_checkpoints, parts=parts,
@@ -367,6 +382,27 @@ def run_devices(args: Args, device=None) -> int:
     return codes[0]
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device):
+    """``--profile=DIR``: a ``torch.profiler`` trace of the enclosed run
+    (this process: host operators and, on the card, its kernels, those that
+    CUDA graphs replay included), written into DIR as a Chrome trace
+    (``matrix_eyes.<pid>.<time>.pt.trace.json``, which TensorBoard and
+    chrome://tracing read)."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir, worker_name="matrix_eyes")):
+        yield
+
+
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """The CLI. ``device`` is for programmatic callers (the tests pass
     "cpu"); the command line has no such flag and runs on the card."""
@@ -390,7 +426,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             return 1
     pb = ConsoleProgressReporter()
     try:
-        run(args, progress=pb, device=device)
+        with _profiled(args.profile_dir, device):
+            run(args, progress=pb, device=device)
     except (MatrixEyesError, NoCudaDevice) as err:
         pb.finish_and_clear()
         print(f"Reconstruction failed: {err}")

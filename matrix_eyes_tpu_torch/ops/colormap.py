@@ -8,9 +8,12 @@ values >= 1 take the last entry.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from matrix_eyes_tpu_torch import aot
 from matrix_eyes_tpu_torch.ops.viridis_data import VIRIDIS_B, VIRIDIS_G, VIRIDIS_R
 
 _LUT = np.stack(
@@ -18,9 +21,16 @@ _LUT = np.stack(
 ).astype(np.float32)  # (256, 3)
 
 
+@functools.lru_cache(maxsize=None)
+def _lut_on(device: torch.device) -> torch.Tensor:
+    """The table on ``device``, copied there once (on the first call, never
+    inside a graph capture, whose warm-up call comes first)."""
+    return torch.from_numpy(_LUT).to(device)
+
+
 def map_depth(value: torch.Tensor) -> torch.Tensor:
     """value: (...,) floats in [0, 1]; returns (..., 3) uint8 RGB."""
-    lut = torch.from_numpy(_LUT).to(value.device)
+    lut = aot.keep_alive(_lut_on(value.device))
     v = value.float()
     step = 1.0 / 255.0
     box = torch.clamp(torch.floor(v / step), 0, 254).long()

@@ -39,7 +39,16 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Wt, R, bn, splits
         ctypes.c_void_p,                                        # stream
     ]),
+    "me_conv3x3_prepare": (ctypes.c_int, []),
 }
+
+
+def prepare() -> None:
+    """Build (if missing) and load the library, and load its kernels with
+    their shared-memory limits set on the current device: the one-time work
+    of a first call (``aot.prefetch_async``)."""
+    _build.check_launch(_build.load("conv3x3", _SIGNATURES).me_conv3x3_prepare(),
+                        "conv3x3 prepare")
 
 # output pixels per block, a band of R rows x Wt columns: the kernel's M tile
 # (TC_BM in csrc/conv3x3.cu, which rejects any other band)

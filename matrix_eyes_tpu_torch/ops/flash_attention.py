@@ -53,7 +53,17 @@ _SIGNATURES = {
         ctypes.c_void_p,                                        # stream
     ]),
     "me_attention_scratch_floats": (ctypes.c_longlong, [ctypes.c_int] * 6),  # B N H D n_valid dtype
+    "me_attention_prepare": (ctypes.c_int, []),
 }
+
+
+def prepare() -> None:
+    """Build (if missing) and load the library, and load its kernels with
+    their shared-memory limits set on the current device: the one-time work
+    of a first call (``aot.prefetch_async``)."""
+    _build.check_launch(_build.load("attention_qkv", _SIGNATURES).me_attention_prepare(),
+                        "attention_qkv prepare")
+
 
 def _scratch(lib, B: int, N: int, H: int, D: int, n_valid: int, code: int,
              device) -> Optional[torch.Tensor]:

@@ -17,11 +17,15 @@ copied: the JAX module imports jax):
 
 from __future__ import annotations
 
+import collections
 import math
+import threading
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from matrix_eyes_tpu_torch import aot
 
 
 def downsample_half(x: torch.Tensor) -> torch.Tensor:
@@ -74,12 +78,36 @@ def _lanczos3_matrix(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
+_DEVICE_MATRICES = 32
+_device_matrices: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+_device_matrices_lock = threading.Lock()
+
+
+def _on_device(make, n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``make(n_in, n_out)`` on ``device``: one copy per (matrix, device),
+    made on the first call (never inside a graph capture, whose warm-up call
+    comes first) and kept for the next ``_DEVICE_MATRICES`` distinct
+    matrices; a graph that reads one keeps it alive (``aot.keep_alive``)."""
+    key = (make.__name__, n_in, n_out, device)
+    with _device_matrices_lock:
+        m = _device_matrices.get(key)
+        if m is not None:
+            _device_matrices.move_to_end(key)
+    if m is None:
+        m = torch.from_numpy(make(n_in, n_out)).to(device)
+        with _device_matrices_lock:
+            _device_matrices[key] = m
+            while len(_device_matrices) > _DEVICE_MATRICES:
+                _device_matrices.popitem(last=False)
+    return aot.keep_alive(m)
+
+
 def resize_lanczos3(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Lanczos3 resize of (H, W, C) data; returns (out_h, out_w, C) f32.
     The caller rounds and clamps to u8 where needed."""
     H, W, _ = img.shape
-    rv = torch.from_numpy(_lanczos3_matrix(H, out_h)).to(img.device)
-    rh = torch.from_numpy(_lanczos3_matrix(W, out_w)).to(img.device)
+    rv = _on_device(_lanczos3_matrix, H, out_h, img.device)
+    rh = _on_device(_lanczos3_matrix, W, out_w, img.device)
     x = torch.einsum("oh,hwc->owc", rv, img.float())
     return torch.einsum("ow,hwc->hoc", rh, x)
 
@@ -113,6 +141,6 @@ def depthmap_bilinear_resample(depth: torch.Tensor, out_h: int, out_w: int) -> t
     """Sample a (H, W) depth grid at every pixel of the (out_h, out_w)
     output: rows, then columns, each an f32 matmul."""
     H, W = depth.shape
-    rv = torch.from_numpy(_depthmap_bilinear_matrix(H, out_h)).to(depth.device)
-    rh = torch.from_numpy(_depthmap_bilinear_matrix(W, out_w)).to(depth.device)
+    rv = _on_device(_depthmap_bilinear_matrix, H, out_h, depth.device)
+    rh = _on_device(_depthmap_bilinear_matrix, W, out_w, depth.device)
     return (rv @ depth.float()) @ rh.T

@@ -17,6 +17,11 @@ Two forms, as in the JAX package:
   CUDA kernel on the card). The TPU's VMEM and width gates are TPU limits
   and are not ported.
 
+The device work runs through the CUDA-graph cache (``aot.call_cached``)
+under the JAX package's names: ``stereogram`` (shift plane and scan) and
+``stereogram_shift`` (the compact form's shift plane). The noise is drawn
+outside them and copied into the graph's input.
+
 Noise policy: noise is drawn on the host from
 ``torch.Generator("cpu").manual_seed(seed)``, (H, pw, 3) u8 or (H, W, 3)
 in the ``wide`` and ``pw == 0`` cases, and uploaded only for the
@@ -32,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from matrix_eyes_tpu_torch import aot
 from matrix_eyes_tpu_torch.ops.resize import depthmap_bilinear_resample
 from matrix_eyes_tpu_torch.ops.stereogram_kernel import (
     doubling_iterations,
@@ -105,7 +111,6 @@ def synthesize_stereogram(depth: torch.Tensor, out_h: int, out_w: int, amplitude
     if pw == 0:
         # degenerate amplitude: every pixel keeps its own noise value
         return stereogram_noise(seed, out_h, out_w).to(depth.device)
-    shift = shift_plane(depth, out_h, out_w, dm, torch.int32)
     win = _max_shift(dm) + 1
     # sub-pixel amplitudes (max_shift == pw) let a pixel link to itself; it
     # then keeps its own noise value, so the noise is full width and the
@@ -114,7 +119,14 @@ def synthesize_stereogram(depth: torch.Tensor, out_h: int, out_w: int, amplitude
     # here: for dm >= 1, round(2 dm + amplitude) >= round(dm) + 1.
     wide = win > pw
     noise = stereogram_noise(seed, out_h, out_w if wide else pw).to(depth.device)
-    if wide:
+    return aot.call_cached("stereogram", _resolve, (depth, noise, out_h, out_w, dm, pw, win))
+
+
+def _resolve(depth: torch.Tensor, noise: torch.Tensor, out_h: int, out_w: int, dm: float,
+             pw: int, win: int) -> torch.Tensor:
+    """The shift plane and the scan of the device-resolved stereogram."""
+    shift = shift_plane(depth, out_h, out_w, dm, torch.int32)
+    if win > pw:
         return linker_scan_plain(shift, noise, pw, win)
     return linker_scan(shift, noise, pw, win)
 
@@ -129,5 +141,6 @@ def synthesize_stereogram_split(depth: torch.Tensor, out_h: int, out_w: int, amp
     if geo is None:
         return None
     dm, pw = geo
-    shift = shift_plane(depth, out_h, out_w, dm, torch.uint8)
+    shift = aot.call_cached("stereogram_shift", shift_plane,
+                            (depth, out_h, out_w, dm, torch.uint8))
     return pw, shift, stereogram_noise(seed, out_h, pw).numpy()

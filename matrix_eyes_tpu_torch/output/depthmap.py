@@ -23,6 +23,10 @@ forward and chunk k's writers do not wait out that forward. Save policy:
 * mesh (``.obj``/``.ply``): the clamped grid is read back and triangulated
   on the host (``output/mesh.py``, ``output/writers.py``); vertex colours
   come from the source file Lanczos3-resized to the grid on the device.
+
+The renders run through the CUDA-graph cache (``aot.call_cached``) under the
+JAX package's names, ``render_depthmap_grid`` and ``render_depthmap``; the
+copies to the host stay outside the graphs.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from matrix_eyes_tpu_torch import timings
+from matrix_eyes_tpu_torch import aot, timings
 from matrix_eyes_tpu_torch.errors import OutputError
 from matrix_eyes_tpu_torch.ops.colormap import map_depth
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
@@ -152,10 +156,12 @@ class DepthMap:
             # upsizing to the source photo: the grid-resolution colour
             # image crosses to the host and is Lanczos3-upsized there
             with timings.span("output: render dispatch"):
-                grid = readback(render_depth_map_grid(self.data))
+                grid = readback(aot.call_cached("render_depthmap_grid", render_depth_map_grid,
+                                                (self.data,)))
             return lambda: png.save_depthmap_host_resize(grid(), destination_path, oh, ow)
         with timings.span("output: render dispatch"):
-            rgb = readback(render_depth_map(self.data, oh, ow))
+            rgb = readback(aot.call_cached("render_depthmap", render_depth_map,
+                                           (self.data, oh, ow)))
         if dest.endswith(".png"):
             return lambda: png.save_rgb(rgb(), destination_path)
         return lambda: png.pil_save(rgb(), destination_path)

@@ -9,10 +9,17 @@ stage prints its own failure message to stderr and tags the error with its
 stage: only the decode is the per-image 'load' stage; preprocess and
 forward failures are 'model' failures, which are systemic (device,
 weights); writing is the per-image 'output' stage.
+
+The device programs run through the CUDA-graph cache (``aot.call_cached``)
+under the JAX package's names: ``preprocess``, ``fwd_fnorm`` and
+``fwd_fov`` for one photo, ``fwd_fnorm_b{N}`` and ``fwd_mixed_b{N}`` for a
+batch of N. On a device mesh the forwards run eagerly: a graph does not
+capture their collectives.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -21,7 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from matrix_eyes_tpu_torch import timings
+from matrix_eyes_tpu_torch import aot, timings
 from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
 from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.progress import SplitProgressListener
@@ -36,33 +43,67 @@ from matrix_eyes_tpu_torch.output.depthmap import (
 )
 
 
+def _preprocess(x: torch.Tensor, img_size: int, dtype: torch.dtype) -> torch.Tensor:
+    x = to_u8(resize_lanczos3(x.float(), img_size, img_size)).float()
+    x = (x / 255.0 - 0.5) / 0.5
+    return x[None].to(dtype)
+
+
 def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
                      device) -> torch.Tensor:
     """Lanczos3 resize to the model resolution, round back to u8 (the
     reference resizes the u8 image), scale to [0, 1], normalise with
     mean = std = 0.5. ``rgb_u8``: (H, W, 3) u8, numpy or a tensor already
-    on ``device`` (the server's upload). Returns (1, S, S, 3) NHWC."""
+    on ``device`` (the server's upload). Returns (1, S, S, 3) NHWC. The
+    photo's copy to the device runs before the ``preprocess`` program."""
     x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
-    x = x.to(device).float()
-    x = to_u8(resize_lanczos3(x, img_size, img_size)).float()
-    x = (x / 255.0 - 0.5) / 0.5
-    return x[None].to(dtype)
+    return aot.call_cached("preprocess", _preprocess, (x.to(device), img_size, dtype))
+
+
+def _program(mesh, name: str, fn, args: tuple, salt: str):
+    """A forward through the CUDA-graph cache on one device; on a mesh
+    eagerly (gloo collectives cannot be captured)."""
+    if mesh is not None:
+        return fn(*args)
+    return aot.call_cached(name, fn, args, salt)
+
+
+def forward_photo(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
+                  f_norm: Optional[float], mesh=None) -> torch.Tensor:
+    """The (S, S) inverse depth of one preprocessed photo: the known-focal
+    forward (``fwd_fnorm``), or without a focal length the FOV head's
+    (``fwd_fov``). The focal length goes to the device before the
+    program."""
+    if f_norm is not None:
+        f = torch.tensor([f_norm], dtype=torch.float32, device=img.device)
+        return _program(mesh, "fwd_fnorm", functools.partial(depth_pro.forward_with_fnorm, cfg),
+                        (params, img, f), repr(cfg))[0]
+    inv, _fov_deg = _program(mesh, "fwd_fov", functools.partial(depth_pro.forward_with_fov, cfg),
+                             (params, img), repr(cfg))
+    return inv[0]
 
 
 def forward_batch(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
-                  f_norms: Sequence[Optional[float]]) -> torch.Tensor:
+                  f_norms: Sequence[Optional[float]], mesh=None) -> torch.Tensor:
     """One forward over an image stack: the known-focal forward when every
-    f_norm is known, else the mixed one (the FOV head fills the images
-    whose f_norm is None). Returns the (B, S, S) inverse depth on the
-    device."""
+    f_norm is known (``fwd_fnorm_b{N}``), else the mixed one
+    (``fwd_mixed_b{N}``: the FOV head fills the images whose f_norm is
+    None). Returns the (B, S, S) inverse depth on the device."""
+    B = img.shape[0]
     if all(f is not None for f in f_norms):
-        return depth_pro.forward_with_fnorm(cfg, params, img, np.asarray(f_norms, np.float32))
+        f = torch.tensor(f_norms, dtype=torch.float32, device=img.device)
+        return _program(mesh, f"fwd_fnorm_b{B}",
+                        functools.partial(depth_pro.forward_with_fnorm, cfg), (params, img, f),
+                        repr(cfg))
     if "fov" not in params:
         raise ReconstructionError("Model error: an image carries no focal length but the FOV "
                                   "weights were not loaded")
-    f_arr = np.asarray([1.0 if f is None else f for f in f_norms], np.float32)
-    has_f = np.asarray([f is not None for f in f_norms])
-    return depth_pro.forward_with_mixed_fnorm(cfg, params, img, f_arr, has_f)[0]
+    f_arr = torch.tensor([1.0 if f is None else f for f in f_norms], dtype=torch.float32,
+                         device=img.device)
+    has_f = torch.tensor([f is not None for f in f_norms], device=img.device)
+    return _program(mesh, f"fwd_mixed_b{B}",
+                    functools.partial(depth_pro.forward_with_mixed_fnorm, cfg),
+                    (params, img, f_arr, has_f), repr(cfg))[0]
 
 
 def _stage_error(msg: str, err: Exception, stage: str) -> MatrixEyesError:
@@ -178,11 +219,7 @@ def extract_depth(
             raise _follower_error(status)
     try:
         with timings.span("model forward"), patch_sharded(mesh):
-            if f_norm is not None:
-                inverse_depth = depth_pro.forward_with_fnorm(cfg, params, img, f_norm)[0]
-            else:
-                inv, _fov_deg = depth_pro.forward_with_fov(cfg, params, img)
-                inverse_depth = inv[0]
+            inverse_depth = forward_photo(cfg, params, img, f_norm, mesh)
             original_size = src.original_size if lead else (cfg.img_size, cfg.img_size)
             depth_map = DepthMap.new(inverse_depth, original_size)
             _wait_for_forward(device)
@@ -264,7 +301,7 @@ def extract_depth_batch(
             if status == _RUN:
                 try:
                     with patch_sharded(mesh):
-                        forward_batch(cfg, params, img, f_norms)
+                        forward_batch(cfg, params, img, f_norms, mesh)
                 except Exception as err:
                     raise _stage_error("Failed to process image", err, "model") from err
         return
@@ -344,7 +381,7 @@ def extract_depth_batch(
                     shared = True
                     _share_inputs(mesh, _RUN, img, f_norms, shape, dtype, device)
                 with timings.span("model forward"), patch_sharded(mesh):
-                    inv = forward_batch(cfg, params, img, f_norms)
+                    inv = forward_batch(cfg, params, img, f_norms, mesh)
                     _wait_for_forward(device)
             except Exception as err:
                 if not shared:  # the other ranks wait for this chunk

@@ -174,7 +174,9 @@ def _upload(source, device: torch.device):
     stream, which records an event. Returns (the source with its pixels on
     the device, ``ready``): ``ready()``, called in the device section, makes
     the forward's stream wait for the copy and tells the caching allocator
-    that this stream uses the pixels. On the CPU: (source, None)."""
+    that this stream uses the pixels, so the ``preprocess`` program's copy
+    of them into its CUDA graph's input (``aot.call_cached``) follows the
+    upload. On the CPU: (source, None)."""
     if device.type != "cuda":
         return source, None
     host = torch.empty(source.rgb.shape, dtype=torch.uint8, pin_memory=True)

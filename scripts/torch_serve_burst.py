@@ -14,15 +14,19 @@ warm the render and encode path.
 response's render, copies back and mesh work on a stream of its own
 (``_outputs_on_their_own_stream``) instead of the default stream, where
 serve.py leaves them behind the next request's forward: the comparison
-behind that choice. ``--rounds N`` repeats it N times, the two placements
-in turns (ABBA), every run kept under ``runs``. ``--random-weights SEED``
+behind that choice. ``--compare-aot`` measures both modes a second time
+with every device program run eagerly (``MATRIX_EYES_AOT=off``) instead of
+through the CUDA-graph cache (``aot.call_cached``, the default).
+``--rounds N`` repeats either comparison N times, the two settings in
+turns (ABBA), every run kept under ``runs``. ``--random-weights SEED``
 serves seeded random DEPTH_PRO weights (bf16, as ``chip_smoke.py``'s
 phase 4) instead of a checkpoint.
 
 Usage (on the card; nothing else may use it meanwhile):
   python scripts/torch_serve_burst.py --checkpoint depth_pro.pt --photo photo.jpg \\
-      [--max-batch 4 --requests 16 --concurrency 8] [--compare-output-streams]
-      [--rounds 4] [--random-weights 0] [--out r.json]
+      [--max-batch 4 --requests 16 --concurrency 8]
+      [--compare-output-streams | --compare-aot] [--rounds 4] [--random-weights 0]
+      [--out r.json]
 
 Prints one JSON line (and writes it to ``--out``). ``main(argv,
 device="cpu")`` runs it on the CPU (tests/test_torch_serve.py, TINY);
@@ -118,11 +122,15 @@ def _outputs_on_their_own_stream():
 
 
 def _run_mode(session, photo: bytes, max_batch: int, requests: int, concurrency: int,
-              fmt: str, own_output_stream: bool = False) -> dict:
-    from matrix_eyes_tpu_torch import serve
+              fmt: str, own_output_stream: bool = False, graphs: bool = True) -> dict:
+    from matrix_eyes_tpu_torch import aot, serve
     from matrix_eyes_tpu_torch.io.image import load_source_image
 
-    server = serve.create_server(session, port=0, max_inflight=concurrency + 4,
+    # a client's next request can arrive before the server's thread for its
+    # previous one has released its in-flight slot (after the reply's last
+    # byte): twice the concurrency is never refused, so the burst measures
+    # throughput, not the 503 path
+    server = serve.create_server(session, port=0, max_inflight=2 * concurrency,
                                  max_batch=max_batch)
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
@@ -138,19 +146,23 @@ def _run_mode(session, photo: bytes, max_batch: int, requests: int, concurrency:
     stack = contextlib.ExitStack()
     if own_output_stream:
         stack.enter_context(_outputs_on_their_own_stream())
+    if not graphs:
+        stack.enter_context(aot.disabled())
     try:
-        # every padded batch shape the burst can reach, driven once
+        # every padded batch shape the burst can reach, driven twice: the
+        # second call of a program captures its graph
         import tempfile
 
         with tempfile.NamedTemporaryFile(suffix=".bin") as f:
             f.write(photo)
             f.flush()
             src = load_source_image(f.name, 35.0)
-        b, top = 1, 1 << (max_batch - 1).bit_length()
-        while b <= top:
-            serve._wait_for_device(session.depth_maps([src] * min(b, max_batch),
-                                                      pad_to_pow2=True))
-            b *= 2
+        for _ in range(2):
+            b, top = 1, 1 << (max_batch - 1).bit_length()
+            while b <= top:
+                serve._wait_for_device(session.depth_maps([src] * min(b, max_batch),
+                                                          pad_to_pow2=True))
+                b *= 2
         _post(url, photo)
         with ThreadPoolExecutor(max_workers=concurrency) as pool:
             list(pool.map(lambda _i: _post(url, photo), range(concurrency)))
@@ -164,6 +176,7 @@ def _run_mode(session, photo: bytes, max_batch: int, requests: int, concurrency:
         lat = [s for _n, s in results]
         return {"max_batch": max_batch, "requests": requests, "concurrency": concurrency,
                 "output_stream": "own" if own_output_stream else "default",
+                "programs": "cuda_graphs" if graphs else "eager",
                 "wall_s": wall, "requests_per_s": requests / wall,
                 "latency_s": {"p50": _percentile(lat, 50), "p95": _percentile(lat, 95),
                               "max": max(lat)},
@@ -211,12 +224,16 @@ def main(argv=None, device=None, session=None) -> dict:
                     help="measure only the coalescing mode")
     ap.add_argument("--compare-output-streams", action="store_true",
                     help="measure again with the outputs on a stream of their own")
+    ap.add_argument("--compare-aot", action="store_true",
+                    help="measure again with every program eager (MATRIX_EYES_AOT=off)")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="with --compare-output-streams: rounds, the placements in turns")
+                    help="with a comparison: rounds, the two settings in turns")
     ap.add_argument("--random-weights", type=int, default=None, metavar="SEED",
                     help="serve seeded random DEPTH_PRO weights, not --checkpoint")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
+    if args.compare_output_streams and args.compare_aot:
+        ap.error("--compare-output-streams and --compare-aot: one comparison at a time")
 
     with open(args.photo, "rb") as f:
         photo = f.read()
@@ -229,23 +246,30 @@ def main(argv=None, device=None, session=None) -> dict:
     report = {"metric": "serve_burst_http", "format": args.format, "photo_bytes": len(photo),
               "dtype": str(session.runtime.resolved_dtype()).removeprefix("torch."),
               "device": _device_line(session)}
+    # (outputs on their own stream, programs through CUDA graphs)
+    pair = [(False, True)]
+    if args.compare_output_streams:
+        pair.append((True, True))
+    if args.compare_aot:
+        pair.append((False, False))
     order = []
-    for r in range(args.rounds if args.compare_output_streams else 1):
-        pair = (False, True) if args.compare_output_streams else (False,)
-        order += list(pair if r % 2 == 0 else pair[::-1])
+    for r in range(args.rounds if len(pair) > 1 else 1):
+        order += pair if r % 2 == 0 else pair[::-1]
     report["runs"] = []
-    for own in order:
+    for own, graphs in order:
         runs = {"batched": _run_mode(session, photo, args.max_batch, args.requests,
-                                     args.concurrency, args.format, own)}
+                                     args.concurrency, args.format, own, graphs)}
         if not args.skip_serialized:
             runs["serialized"] = _run_mode(session, photo, 1, args.requests,
-                                           args.concurrency, args.format, own)
+                                           args.concurrency, args.format, own, graphs)
             runs["coalescing_speedup"] = (runs["batched"]["requests_per_s"]
                                           / runs["serialized"]["requests_per_s"])
         report["runs"].append(runs)
-        # the first run of each placement also at the top level
+        # the first run of each setting also at the top level
         if own:
             report.setdefault("own_output_stream", runs)
+        elif not graphs:
+            report.setdefault("eager", runs)
         elif "batched" not in report:
             report.update(runs)
     print(json.dumps(report))

@@ -783,3 +783,26 @@ def test_burst_script_smoke(ckpt, tmp_path):
     assert report["runs"][0]["batched"] is report["batched"]
     with open(out) as f:
         assert json.load(f)["metric"] == "serve_burst_http"
+
+
+def test_burst_script_compares_graphs_with_eager(ckpt, tmp_path):
+    # --compare-aot: the same burst with every program eager
+    # (MATRIX_EYES_AOT=off), the two settings in turns; on the CPU both run
+    # eagerly, so this holds the bookkeeping
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
+    import torch_serve_burst
+
+    photo = tmp_path / "p.jpg"
+    Image.fromarray(np.random.RandomState(12).randint(0, 256, (40, 56, 3), np.uint8)).save(
+        photo, format="JPEG")
+    report = torch_serve_burst.main([
+        "--checkpoint", ckpt, "--photo", str(photo), "--max-batch", "2", "--requests", "2",
+        "--concurrency", "2", "--compare-aot", "--rounds", "2"], device="cpu")
+    assert [r["batched"]["programs"] for r in report["runs"]] == [
+        "cuda_graphs", "eager", "eager", "cuda_graphs"]
+    assert report["eager"] is report["runs"][1] and "own_output_stream" not in report
+    assert report["eager"]["serialized"]["requests_per_s"] > 0
+    assert os.environ.get("MATRIX_EYES_AOT") is None
+    with pytest.raises(SystemExit):
+        torch_serve_burst.main(["--photo", str(photo), "--compare-aot",
+                                "--compare-output-streams"], device="cpu")
