@@ -130,9 +130,24 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    replay, its trace holding their kernels; and the server burst with
    graphs against eager (``scripts/torch_serve_burst.py --compare-aot``,
    two rounds in turns). Phase 15 also times the start to the first PNG
-   with and without the warm-up thread (``aot.prefetch_async``).
+   with and without the warm-up thread (``aot.prefetch_async``);
+18. the mesh's forwards through its CUDA-graph cache (``aot.mesh_cache``):
+   (a) an NCCL world of one rank captures ``dist.all_reduce`` and
+   ``dist.all_gather_into_tensor`` called directly inside a program of a
+   ``GraphCache``, each replay equal to the eager result of its own input;
+   (b) the NCCL 1x1 mesh's forward with phase 4's weights
+   (``parallel.checks.run_graph_cases``) runs eager, eager, capture,
+   replay, 72/24 launches each, the replay bit-equal to its eager call and
+   to phase 4's inverse depth, with graphs against eager in turns (wall,
+   host issue, device time); then ``fwd_fnorm`` and ``fwd_fnorm_b2`` the
+   same way (48/24 launches), each capturing after the previous case's
+   graphs were freed with its weights; (c) phase 16's gloo ranks ran every forward
+   of the entry points eagerly; (d) with two cards NCCL 1x2 and 2x1, with
+   four also 2x2, each replay bit-equal to its eager call and within the
+   bf16 gate of phase 4; on one card a line says these meshes run in
+   ``scripts/torch_mesh_check.py --graphs``.
 
-Phases 4-16 run with the graph cache on, its default: a program's first
+Phases 4-16 and 18 run with the graph cache on, its default: a program's first
 call with a signature runs eagerly, the second runs eagerly once more and
 captures, later ones replay. So where a phase runs a path twice, its first
 wall is the eager call and its second includes the capture; a path whose
@@ -146,7 +161,8 @@ compact PNG, resolved PNG, JPEG, OBJ with vertex colours, the batch-4
 directory, the depth-map PNG under --dtype f16, mixed and int8, the served
 depth-map PNG, the eight batched /v1/depth requests, the warm start,
 rank 0's forward on the meshes NCCL 1x1, 1x2, 2x1 and 2x2 and the entry
-points at 2x2, and phase 17's replayed forward and replayed stereogram),
+points at 2x2, phase 17's replayed forward and replayed stereogram, and
+phase 18's replayed forward of rank 0 on each NCCL mesh),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
 PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
@@ -1693,7 +1709,8 @@ def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
     ``inverse_depth_batch`` and ``process_batch`` on the mesh. Rank 0's
     PNGs are held to phase 4's and phase 9's one-card PNGs, the session's
     inverse depth to phase 4's; every call's launches and collectives to
-    what its forwards run. Returns rank 0's launches by call."""
+    what its forwards run. Returns rank 0's launches by call and every
+    rank's modes of the forwards by call (gloo: eager on every call)."""
     import torch
 
     from matrix_eyes_tpu_torch.parallel import launch
@@ -1736,9 +1753,10 @@ def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
                    backend="gloo", devices=[str(dev)] * 4, timeout=MESH_TIMEOUT)
     print(f"[16] entry points on a 2x2 gloo world sharing {dev}: "
           f"{time.perf_counter() - t0:.1f} s with start-up")
-    counts = {}
+    counts, modes = {}, {}
     for i, (name, call, pngs) in enumerate(calls):
         got = [r["calls"][i] for r in ranks]
+        modes[name] = [g["modes"] for g in got]
         for r, g in zip(ranks, got):
             require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
             want = {"attention_qkv": call["forwards"] * call["n_vits"] * cfg.depth,
@@ -1749,7 +1767,8 @@ def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
                   f"{g['wall']:.2f} s (loads included, ranks time-sharing one card); launches "
                   f"{have}; attention by (B, N, H, D, dtype) "
                   f"{g['kernels']['attention_by_shape']}; conv3x3 by N "
-                  f"{g['kernels']['conv3x3_by_batch']}; collectives (calls, bytes) {calls_}")
+                  f"{g['kernels']['conv3x3_by_batch']}; collectives (calls, bytes) {calls_}; "
+                  f"forward modes {g['modes']}")
             require(g.get("rc", 0) == 0, f"{name}: rank {r['rank']} exited {g.get('rc')}")
             require(have == want, f"{name} rank {r['rank']}: launches {have}, expected {want}")
         counts[f"mesh_2x2_{name}"] = got[0]["kernels"]
@@ -1771,17 +1790,40 @@ def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
             require(res["ok"] and same, f"{name}: the session's inverse depth")
     for c in counts.values():
         c.setdefault("linker_scan", 0)
-    return counts
+    return counts, modes
 
 
-def phase_multi_device(dev, src, ref_inv, photos: list) -> dict:
+def write_weights(dev) -> str:
+    """The phase-4 weights (the seed regenerates them), written to build/
+    for the ranks of phases 16 and 18, which map them from disk and each
+    move only their cut to the card. Returns the path."""
+    import torch
+
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.models.spec import tree_map
+
+    t0 = time.perf_counter()
+    params = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.bfloat16)
+    weights = os.path.join(OUT_DIR, "weights_bf16.pt")
+    torch.save(tree_map(lambda _p, t: t.cpu(), params), weights)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[16] phase-4 weights written for the ranks in {time.perf_counter() - t0:.1f} s "
+          f"({os.path.getsize(weights) / 2**30:.2f} GiB)")
+    return weights
+
+
+def phase_multi_device(dev, src, ref_inv, photos: list, weights: str) -> tuple:
     """``--devices`` and the sharded forward on one card: the refusal of a
     mesh larger than the machine, an NCCL world of one rank bit for bit
     against phase 4, gloo ranks sharing the card at full width (1x2, 2x1,
     2x2) within the bf16 gate of phase 4, MID 2x2 on the card against the
     same mesh on the CPU under f32, int8 and mixed, and the entry points
     (the CLI's ranks, a session) at 2x2 (``_entry_points_2x2``). Returns
-    rank 0's launch counts by mesh and call."""
+    rank 0's launch counts by mesh and call, and the modes the entry
+    points' forwards ran in on each rank ({call: [modes of rank r]})."""
     import contextlib
     import io
 
@@ -1791,7 +1833,6 @@ def phase_multi_device(dev, src, ref_inv, photos: list) -> dict:
     from matrix_eyes_tpu_torch import cli, pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, MID, parse_dtype_policy
     from matrix_eyes_tpu_torch.models.init import init_params
-    from matrix_eyes_tpu_torch.models.spec import tree_map
     from matrix_eyes_tpu_torch.parallel import launch
     from matrix_eyes_tpu_torch.parallel.checks import run_cases
     from matrix_eyes_tpu_torch.pt.convert import place_params
@@ -1809,141 +1850,108 @@ def phase_multi_device(dev, src, ref_inv, photos: list) -> dict:
           f"{out.getvalue().strip().splitlines()[-1]!r}")
     require(rc == 1 and want in out.getvalue(), "--devices beyond the cards was not refused")
 
-    # the phase-4 weights (the seed regenerates them) on the host, mapped
-    # from disk by every rank; the phase-4 photo's preprocessed image
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
-    weights = os.path.join(OUT_DIR, "weights_bf16.pt")
-    torch.save(tree_map(lambda _p, t: t.cpu(), params), weights)
-    del params
-    torch.cuda.empty_cache()
+    # the phase-4 photo's preprocessed image
     img = pipeline.preprocess_image(src.rgb, cfg.img_size, torch.bfloat16, dev).cpu()
-    print(f"[16] phase-4 weights written for the ranks in {time.perf_counter() - t0:.1f} s "
-          f"({os.path.getsize(weights) / 2**30:.2f} GiB)")
     counts = {}
-    try:
-        # 2. NCCL, one rank: the real backend and launcher, bit for bit
-        t0 = time.perf_counter()
-        (r,) = launch(run_cases, (1, 1), [dict(cfg=cfg, params=weights, img=img)],
-                      timeout=MESH_TIMEOUT)
-        case = r["cases"][0]
-        equal = torch.equal(case["inv"], ref_inv.cpu())
-        res = compare(case["inv"], ref_inv.cpu(), torch.bfloat16)
-        print(f"[16] NCCL 1x1 ({time.perf_counter() - t0:.1f} s with start-up): world "
-              f"all-reduce {r['world_sum']}, inverse depth == phase 4's: {equal} "
-              f"(max_abs={res['max_abs_err']:.3e}, max_rel={res['max_rel_err']:.3e}); fov "
-              f"{case['fov'].item():.6f} deg; foreign modules {r['foreign_modules']}")
-        print(_rank_summary("[16]", case))
-        require(r["backend"] == "nccl" and r["world_sum"] == 1.0, "the NCCL world did not run")
-        require(equal, "NCCL 1x1 inverse depth differs from phase 4's one-device forward")
-        require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
-        counts["mesh_nccl_1x1"] = case["kernels"]
+    # 2. NCCL, one rank: the real backend and launcher, bit for bit
+    t0 = time.perf_counter()
+    (r,) = launch(run_cases, (1, 1), [dict(cfg=cfg, params=weights, img=img)],
+                  timeout=MESH_TIMEOUT)
+    case = r["cases"][0]
+    equal = torch.equal(case["inv"], ref_inv.cpu())
+    res = compare(case["inv"], ref_inv.cpu(), torch.bfloat16)
+    print(f"[16] NCCL 1x1 ({time.perf_counter() - t0:.1f} s with start-up): world "
+          f"all-reduce {r['world_sum']}, inverse depth == phase 4's: {equal} "
+          f"(max_abs={res['max_abs_err']:.3e}, max_rel={res['max_rel_err']:.3e}); fov "
+          f"{case['fov'].item():.6f} deg; foreign modules {r['foreign_modules']}")
+    print(_rank_summary("[16]", case))
+    require(r["backend"] == "nccl" and r["world_sum"] == 1.0, "the NCCL world did not run")
+    require(equal, "NCCL 1x1 inverse depth differs from phase 4's one-device forward")
+    require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
+    counts["mesh_nccl_1x1"] = case["kernels"]
 
-        # 3. gloo ranks sharing the card, full width: 1x2 and 2x1 in one
-        # world of two ranks, then 2x2 in a world of four with MID beside it
-        mid = init_params(MID, torch.Generator().manual_seed(3), "cpu", torch.float32)
-        mid_img = np.random.RandomState(5).uniform(-1, 1, (1, MID.img_size, MID.img_size, 3))
-        mid_img = torch.from_numpy(mid_img.astype(np.float32))
-        mid_cases = []
-        for policy in ("f32", "int8", "mixed"):
-            dtype, q8, mixed = parse_dtype_policy(policy)
-            placed = place_params(mid, "cpu", dtype, quantize_int8=q8, mixed_bf16=mixed)
-            x = mid_img.to(torch.float32 if policy in ("f32", "mixed") else torch.bfloat16)
-            for where in (None, "cpu"):  # the ranks' card, then the host
-                mid_cases.append((policy, where, dict(cfg=MID, params=placed, img=x,
-                                                      device=where)))
-        worlds = (((1, 2), [dict(cfg=cfg, params=weights, img=img, runs=2),
-                            dict(cfg=cfg, params=weights, img=img, runs=2, model=1)]),
-                  ((2, 2), [dict(cfg=cfg, params=weights, img=img, runs=2)]
-                   + [c for _p, _w, c in mid_cases]))
-        for shape, cases in worlds:
-            n = shape[0] * shape[1]
-            t0 = time.perf_counter()
-            results = launch(run_cases, shape, cases, backend="gloo",
-                             devices=[str(dev)] * n, timeout=MESH_TIMEOUT)
-            print(f"[16] gloo world of {n} ranks sharing {dev}: "
-                  f"{time.perf_counter() - t0:.1f} s with start-up")
-            for r in results:
-                require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
-            for i in range(2 if shape == (1, 2) else 1):
-                rank_cases = [r["cases"][i] for r in results]
-                data, model = rank_cases[0]["mesh"]
-                for rc_ in rank_cases:
-                    print(_rank_summary("[16]", rc_))
-                    want = _mesh_expectations(cfg, data, model)
-                    require(rc_["kernels"]["attention_qkv"] == 3 * cfg.depth
-                            and rc_["kernels"]["conv3x3"] == 24,
-                            f"{data}x{model} rank {rc_['rank']}: launches {rc_['kernels']}")
-                    require(rc_["kernels"]["attention_by_shape"] == want,
-                            f"{data}x{model}: attention shapes "
-                            f"{rc_['kernels']['attention_by_shape']}, expected {want}")
-                    reduces = rc_["report"]["collectives"].get("all-reduce", {}).get("calls", 0)
-                    require(reduces == (6 * cfg.depth if model > 1 else 0),
-                            f"{data}x{model}: {reduces} all-reduces")
-                res = compare(rank_cases[0]["inv"], ref_inv.cpu(), torch.bfloat16)
-                same = all(torch.equal(c["inv"], rank_cases[0]["inv"]) for c in rank_cases)
-                walls = [c["walls"][-1] for c in rank_cases]
-                print(f"[16] {data}x{model} bf16 DEPTH_PRO, {n} ranks time-sharing one card "
-                      f"(not a speed-up): inverse depth vs phase 4 max_abs="
-                      f"{res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
-                      f"(gate {BF16_REL:g}) {'ok' if res['ok'] else 'FAIL'}; ranks bit-equal: "
-                      f"{same}; warm forward wall per rank s {[round(w, 3) for w in walls]}")
-                require(res["ok"], f"{data}x{model}: inverse depth outside the bf16 gate")
-                require(same, f"{data}x{model}: the ranks' inverse depths differ")
-                counts[f"mesh_{data}x{model}"] = rank_cases[0]["kernels"]
-        # 4. MID 2x2, card against CPU over the same ranks
-        rank0 = results[0]["cases"][1:]
-        for k in range(0, len(rank0), 2):
-            policy = mid_cases[k][0]
-            card, host = rank0[k], rank0[k + 1]
-            if policy == "f32":
-                f_norm = math.tan(0.5 * host["fov"].item() * math.pi / 180.0) / 0.5
-                a, b = card["inv"] * f_norm, host["inv"] * f_norm
-                ok = (bool(torch.isfinite(a).all())
-                      and bool(((a - b).abs() <= E2E_ATOL + E2E_RTOL * b.abs()).all())
-                      and bool(torch.allclose(card["fov"], host["fov"], rtol=E2E_RTOL, atol=0)))
-                err = (a - b).abs().max().item()
-            else:  # as phase 13: the canonical inverse depth and the FOV, each
-                can = [r["inv"] * (torch.tan(0.5 * r["fov"] * math.pi / 180.0) / 0.5)
-                       for r in (card, host)]
-                err = rel_gap(can[0], can[1])
-                fov_err = rel_gap(card["fov"], host["fov"])
-                ok = (bool(torch.isfinite(can[0]).all())
-                      and max(err, fov_err) <= POLICY_MID_REL[policy])
-            print(f"[16] MID 2x2 --dtype={policy} card vs CPU: "
-                  f"{'inverse depth x f_norm max_abs' if policy == 'f32' else 'canonical max_rel'}"
-                  f"={err:.3e}, fov {card['fov'].item():.6f} vs {host['fov'].item():.6f} deg; "
-                  f"collectives {card['report']['collectives']} {'ok' if ok else 'FAIL'}")
-            require(ok, f"MID 2x2 --dtype={policy}: the card disagrees with the CPU")
-        # 5. the entry points a user calls, at 2x2
-        counts.update(_entry_points_2x2(dev, cfg, weights, photos, ref_inv))
-    finally:
-        os.remove(weights)
+    # 3. gloo ranks sharing the card, full width: 1x2 and 2x1 in one
+    # world of two ranks, then 2x2 in a world of four with MID beside it
+    mid = init_params(MID, torch.Generator().manual_seed(3), "cpu", torch.float32)
+    mid_img = np.random.RandomState(5).uniform(-1, 1, (1, MID.img_size, MID.img_size, 3))
+    mid_img = torch.from_numpy(mid_img.astype(np.float32))
+    mid_cases = []
+    for policy in ("f32", "int8", "mixed"):
+        dtype, q8, mixed = parse_dtype_policy(policy)
+        placed = place_params(mid, "cpu", dtype, quantize_int8=q8, mixed_bf16=mixed)
+        x = mid_img.to(torch.float32 if policy in ("f32", "mixed") else torch.bfloat16)
+        for where in (None, "cpu"):  # the ranks' card, then the host
+            mid_cases.append((policy, where, dict(cfg=MID, params=placed, img=x,
+                                                  device=where)))
+    worlds = (((1, 2), [dict(cfg=cfg, params=weights, img=img, runs=2),
+                        dict(cfg=cfg, params=weights, img=img, runs=2, model=1)]),
+              ((2, 2), [dict(cfg=cfg, params=weights, img=img, runs=2)]
+               + [c for _p, _w, c in mid_cases]))
+    for shape, cases in worlds:
+        n = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        results = launch(run_cases, shape, cases, backend="gloo",
+                         devices=[str(dev)] * n, timeout=MESH_TIMEOUT)
+        print(f"[16] gloo world of {n} ranks sharing {dev}: "
+              f"{time.perf_counter() - t0:.1f} s with start-up")
+        for r in results:
+            require(not r["foreign_modules"], f"a rank loaded jax: {r['foreign_modules']}")
+        for i in range(2 if shape == (1, 2) else 1):
+            rank_cases = [r["cases"][i] for r in results]
+            data, model = rank_cases[0]["mesh"]
+            for rc_ in rank_cases:
+                print(_rank_summary("[16]", rc_))
+                want = _mesh_expectations(cfg, data, model)
+                require(rc_["kernels"]["attention_qkv"] == 3 * cfg.depth
+                        and rc_["kernels"]["conv3x3"] == 24,
+                        f"{data}x{model} rank {rc_['rank']}: launches {rc_['kernels']}")
+                require(rc_["kernels"]["attention_by_shape"] == want,
+                        f"{data}x{model}: attention shapes "
+                        f"{rc_['kernels']['attention_by_shape']}, expected {want}")
+                reduces = rc_["report"]["collectives"].get("all-reduce", {}).get("calls", 0)
+                require(reduces == (6 * cfg.depth if model > 1 else 0),
+                        f"{data}x{model}: {reduces} all-reduces")
+            res = compare(rank_cases[0]["inv"], ref_inv.cpu(), torch.bfloat16)
+            same = all(torch.equal(c["inv"], rank_cases[0]["inv"]) for c in rank_cases)
+            walls = [c["walls"][-1] for c in rank_cases]
+            print(f"[16] {data}x{model} bf16 DEPTH_PRO, {n} ranks time-sharing one card "
+                  f"(not a speed-up): inverse depth vs phase 4 max_abs="
+                  f"{res['max_abs_err']:.3e} max_rel={res['max_rel_err']:.3e} "
+                  f"(gate {BF16_REL:g}) {'ok' if res['ok'] else 'FAIL'}; ranks bit-equal: "
+                  f"{same}; warm forward wall per rank s {[round(w, 3) for w in walls]}")
+            require(res["ok"], f"{data}x{model}: inverse depth outside the bf16 gate")
+            require(same, f"{data}x{model}: the ranks' inverse depths differ")
+            counts[f"mesh_{data}x{model}"] = rank_cases[0]["kernels"]
+    # 4. MID 2x2, card against CPU over the same ranks
+    rank0 = results[0]["cases"][1:]
+    for k in range(0, len(rank0), 2):
+        policy = mid_cases[k][0]
+        card, host = rank0[k], rank0[k + 1]
+        if policy == "f32":
+            f_norm = math.tan(0.5 * host["fov"].item() * math.pi / 180.0) / 0.5
+            a, b = card["inv"] * f_norm, host["inv"] * f_norm
+            ok = (bool(torch.isfinite(a).all())
+                  and bool(((a - b).abs() <= E2E_ATOL + E2E_RTOL * b.abs()).all())
+                  and bool(torch.allclose(card["fov"], host["fov"], rtol=E2E_RTOL, atol=0)))
+            err = (a - b).abs().max().item()
+        else:  # as phase 13: the canonical inverse depth and the FOV, each
+            can = [r["inv"] * (torch.tan(0.5 * r["fov"] * math.pi / 180.0) / 0.5)
+                   for r in (card, host)]
+            err = rel_gap(can[0], can[1])
+            fov_err = rel_gap(card["fov"], host["fov"])
+            ok = (bool(torch.isfinite(can[0]).all())
+                  and max(err, fov_err) <= POLICY_MID_REL[policy])
+        print(f"[16] MID 2x2 --dtype={policy} card vs CPU: "
+              f"{'inverse depth x f_norm max_abs' if policy == 'f32' else 'canonical max_rel'}"
+              f"={err:.3e}, fov {card['fov'].item():.6f} vs {host['fov'].item():.6f} deg; "
+              f"collectives {card['report']['collectives']} {'ok' if ok else 'FAIL'}")
+        require(ok, f"MID 2x2 --dtype={policy}: the card disagrees with the CPU")
+    # 5. the entry points a user calls, at 2x2
+    entry_counts, modes = _entry_points_2x2(dev, cfg, weights, photos, ref_inv)
+    counts.update(entry_counts)
     for c in counts.values():
         c.setdefault("linker_scan", 0)
-    return counts
-
-
-def _device_ms(fn, calls: int) -> tuple:
-    """torch.profiler over ``calls`` calls of ``fn``: (device ms per call,
-    kernel launches per call, cudaGraphLaunch calls), kernels replayed by a
-    CUDA graph included."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, kernels, graph_launches = 0.0, 0, 0
-    for ev in prof.events():
-        if ev.name == "cudaGraphLaunch":
-            graph_launches += 1
-        if str(ev.device_type).endswith("CUDA") and "memcpy" not in ev.name.lower() \
-                and "memset" not in ev.name.lower():
-            us += ev.time_range.elapsed_us()
-            kernels += 1
-    return us / 1000.0 / calls, kernels / calls, graph_launches / calls
+    return counts, modes
 
 
 def _eager_then_graphs(name: str, fn, calls: int = 3) -> tuple:
@@ -1988,33 +1996,6 @@ def _same(name: str, eager, got, gate: str) -> dict:
     return row
 
 
-def _timed(fn, calls: int) -> dict:
-    """Per call: the wall by CUDA events over ``calls`` calls back to back,
-    and the host's time and CPU time to issue one call on an idle card
-    (each call alone, the card synchronised before it, the wait outside the
-    measure). The host's CPU clock ticks coarsely here: read it as a sum
-    over the calls."""
-    import torch
-
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    issue = cpu = 0.0
-    for _ in range(calls):
-        torch.cuda.synchronize()
-        cpu0, t0 = time.process_time(), time.perf_counter()
-        fn()
-        issue += time.perf_counter() - t0
-        cpu += time.process_time() - cpu0
-    torch.cuda.synchronize()
-    return {"wall_ms": start.elapsed_time(end) / calls, "issue_ms": issue * 1e3 / calls,
-            "host_cpu_ms": cpu * 1e3 / calls}
-
-
 def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
     """17: the CUDA-graph cache (``aot.call_cached``) on phase 4's weights
     and photo: each program of the bf16 path (preprocess, fwd_fov,
@@ -2042,6 +2023,7 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
         render_depth_map_grid,
     )
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+    from matrix_eyes_tpu_torch.parallel.checks import device_ms, timed
     from matrix_eyes_tpu_torch.pt.convert import place_params
 
     cfg = DEPTH_PRO
@@ -2148,13 +2130,13 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
             with contextlib.ExitStack() as stack:
                 if mode == "eager":
                     stack.enter_context(aot.disabled())
-                runs[mode].append(_timed(fwd, calls))
+                runs[mode].append(timed(fwd, calls))
         dev_ms = {}
         for mode in ("graphs", "eager"):
             with contextlib.ExitStack() as stack:
                 if mode == "eager":
                     stack.enter_context(aot.disabled())
-                dev_ms[mode] = _device_ms(fwd, 2)
+                dev_ms[mode] = device_ms(fwd, 2)
         cell = f"{policy}_b{batch}"
         timing[cell] = {"runs": runs, "device": dev_ms}
         for mode in ("graphs", "eager"):
@@ -2229,6 +2211,132 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
             "graphs_stereogram_replay": stereo_counts}
 
 
+def _graph_case_summary(tag: str, c: dict) -> str:
+    """One rank's case of ``checks.run_graph_cases``: each call's mode,
+    wall, launches and collectives, the capture's cost."""
+    calls = "; ".join(
+        f"{x['mode']} {x['wall']:.3f} s, attention_qkv {x['kernels']['attention_qkv']} conv3x3 "
+        f"{x['kernels']['conv3x3']}, collectives "
+        f"{ {k: v['calls'] for k, v in x['report']['collectives'].items()} }"
+        for x in c["calls"])
+    capture = ("none" if c["capture_s"] is None else
+               f"{c['capture_s']:.3f} s, pool +{c['capture_pool_growth'] / 2**20:.1f} MiB")
+    return (f"{tag} rank {c['rank']} mesh {c['mesh'][0]}x{c['mesh'][1]} "
+            f"{c['calls'][0]['program']}: {calls}; replay bit-equal to eager: {c['bit_equal']}; "
+            f"capture {capture}; graph pool {c['pool_bytes'] / 2**30:.3f} GiB")
+
+
+def _hold_graph_case(tag: str, c: dict, cfg, n_vits: int = 3) -> None:
+    """A case of ``checks.run_graph_cases`` on the card: eager, warm-up,
+    capture, replay; the replay bit-equal to the eager call; every call the
+    forward's launches (``n_vits`` ViTs of ``cfg.depth`` blocks: 3 with the
+    FOV head, 2 without; 24 conv3x3 an image batch)."""
+    modes = [x["mode"] for x in c["calls"]]
+    require(modes == ["eager", "eager", "capture", "replay"],
+            f"{tag}: modes {modes}, expected eager, eager, capture, replay")
+    require(c["bit_equal"], f"{tag}: the replay differs from the eager call")
+    for x in c["calls"]:
+        got = (x["kernels"]["attention_qkv"], x["kernels"]["conv3x3"])
+        require(got == (n_vits * cfg.depth, 24),
+                f"{tag}: a {x['mode']} call launched {got} attention_qkv/conv3x3")
+
+
+def phase_mesh_graphs(dev, src, ref_inv, weights: str, gloo_modes: dict) -> dict:
+    """18: the mesh's forwards through its CUDA-graph cache
+    (``aot.mesh_cache``): (a) NCCL's own collectives captured in a graph;
+    (b) the 1x1 NCCL mesh's forward through the mesh cache, bit-equal to
+    phase 4; (c) phase 16's gloo ranks ran every forward eagerly; (d) NCCL
+    1x2 and 2x1 (2x2 on four cards) where the machine has the cards.
+    Returns rank 0's replay launches by mesh."""
+    import torch
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.parallel import launch
+    from matrix_eyes_tpu_torch.parallel.checks import run_collectives_capture, run_graph_cases
+
+    cfg = DEPTH_PRO
+    t_phase = time.perf_counter()
+    # a. dist.all_reduce and dist.all_gather_into_tensor inside a graph
+    (r,) = launch(run_collectives_capture, (1, 1), timeout=MESH_TIMEOUT)
+    modes = [c["mode"] for c in r["calls"]]
+    print(f"[18a] NCCL world of {r['world']} rank: all_reduce + all_gather_into_tensor of "
+          f"2^20 f32 through a GraphCache: modes {modes}, each equal to the eager result of "
+          f"its input {[c['equal'] for c in r['calls']]}; captured (name, s, pool growth B) "
+          f"{r['captured']}")
+    require(r["backend"] == "nccl" and not r["foreign_modules"], f"part a ran on {r['backend']}")
+    require(modes == ["eager", "capture", "replay", "replay"]
+            and all(c["equal"] for c in r["calls"]),
+            "NCCL's collectives did not capture, or a replay differs from eager")
+
+    # b. the 1x1 NCCL mesh's forwards through the mesh cache: fwd_fov, then
+    # fwd_fnorm and fwd_fnorm_b2, each case's graphs freed with its weights
+    # before the next one captures into the mesh's pool
+    img = pipeline.preprocess_image(src.rgb, cfg.img_size, torch.bfloat16, dev).cpu()
+    t0 = time.perf_counter()
+    (r,) = launch(run_graph_cases, (1, 1), [
+        dict(cfg=cfg, params=weights, img=img, timing=5),
+        dict(cfg=cfg, params=weights, img=img, f_norms=[0.9]),
+        dict(cfg=cfg, params=weights, img=torch.cat([img, img.flip(2)]), f_norms=[0.9, 1.2])],
+        timeout=MESH_TIMEOUT)
+    c = r["cases"][0]
+    print(f"[18b] NCCL 1x1 ({time.perf_counter() - t0:.1f} s with start-up); foreign modules "
+          f"{r['foreign_modules']}")
+    require(r["backend"] == "nccl" and not r["foreign_modules"],
+            f"part b ran on {r['backend']} with {r['foreign_modules']}")
+    print(_graph_case_summary("[18b]", c))
+    _hold_graph_case("[18b] NCCL 1x1", c, cfg)
+    equal = torch.equal(c["inv"], ref_inv[0].cpu())
+    print(f"[18b] replayed inverse depth == phase 4's: {equal}")
+    require(equal, "the 1x1 mesh's replay differs from phase 4's inverse depth")
+    for known in r["cases"][1:]:
+        print(_graph_case_summary("[18b]", known))
+        _hold_graph_case(f"[18b] NCCL 1x1 {known['calls'][0]['program']}", known, cfg, n_vits=2)
+    t = c["timing"]
+    for mode in ("graphs", "eager"):
+        runs = t["runs"][mode]
+        print(f"[18b] 1x1 {mode}: wall ms {[round(x['wall_ms'], 3) for x in runs]}, host issue "
+              f"ms {[round(x['issue_ms'], 3) for x in runs]}, host CPU ms "
+              f"{[round(x['host_cpu_ms'], 2) for x in runs]}; device ms "
+              f"{t['device'][mode][0]:.3f} in {t['device'][mode][1]:.0f} kernels, by family "
+              f"{ {k: round(v, 3) for k, v in sorted(t['device'][mode][3].items())} }")
+    counts = {"mesh_graphs_nccl_1x1_replay": c["calls"][3]["kernels"]}
+
+    # c. gloo stays eager: phase 16's entry points on the 2x2 gloo world
+    for name, ranks in gloo_modes.items():
+        print(f"[18c] gloo 2x2 {name}: forward modes by rank {ranks}")
+        require(all(ranks) and all(m == "eager" for r_ in ranks for m in r_),
+                f"gloo 2x2 {name}: a forward ran in another mode than eager: {ranks}")
+
+    # d. NCCL across cards
+    n_cards = torch.cuda.device_count()
+    worlds = ([((1, 2), [dict(cfg=cfg, params=weights, img=img),
+                         dict(cfg=cfg, params=weights, img=img, model=1)])] if n_cards >= 2
+              else [])
+    if n_cards >= 4:
+        worlds.append(((2, 2), [dict(cfg=cfg, params=weights, img=img)]))
+    for shape, cases in worlds:
+        results = launch(run_graph_cases, shape, cases, timeout=MESH_TIMEOUT)
+        require(all(res["backend"] == "nccl" and not res["foreign_modules"] for res in results),
+                f"[18d] {shape}: a rank ran without NCCL or loaded jax")
+        for i in range(len(cases)):
+            rank_cases = [res["cases"][i] for res in results]
+            for rc_ in rank_cases:
+                print(_graph_case_summary("[18d]", rc_))
+                _hold_graph_case(f"[18d] {rc_['mesh']}", rc_, cfg)
+            res = compare(rank_cases[0]["inv"][None], ref_inv.cpu(), torch.bfloat16)
+            require(res["ok"], f"[18d] {rank_cases[0]['mesh']}: outside the bf16 gate: {res}")
+            data, model = rank_cases[0]["mesh"]
+            counts[f"mesh_graphs_nccl_{data}x{model}_replay"] = rank_cases[0]["calls"][3]["kernels"]
+    if n_cards < 2:
+        print(f"[18d] {n_cards} card: NCCL 1x2, 2x1 and the four-card meshes run in "
+              "scripts/torch_mesh_check.py --graphs")
+    for c_ in counts.values():
+        c_.setdefault("linker_scan", 0)
+    print(f"[18] phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2272,10 +2380,16 @@ def main() -> int:
     phase_policies_mid(dev)
     by_path["serve"], by_path["serve_batch4"] = phase_serve(dev, canonical, src, photos)
     by_path["warm_start"] = phase_warm_start(dev, canonical, photos[0])
-    by_path.update(phase_multi_device(dev, src, inv_bf16, photos))
-    by_path.update(phase_graphs(dev, canonical, src, photos))
-    del canonical
-    torch.cuda.empty_cache()
+    weights = write_weights(dev)
+    try:
+        mesh_counts, gloo_modes = phase_multi_device(dev, src, inv_bf16, photos, weights)
+        by_path.update(mesh_counts)
+        by_path.update(phase_graphs(dev, canonical, src, photos))
+        del canonical
+        torch.cuda.empty_cache()
+        by_path.update(phase_mesh_graphs(dev, src, inv_bf16, weights, gloo_modes))
+    finally:
+        os.remove(weights)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 

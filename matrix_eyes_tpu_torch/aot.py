@@ -36,13 +36,21 @@ and device, the TF32 and reduced-precision flags of cuBLAS and cuDNN
 (``config.configure_precision``), the torch version and the device's name:
 the JAX key of ``matrix_eyes_tpu/aot.py:_key`` without its XLA items.
 
-Graphs of one device share one memory pool. That is safe because every
-replay, its input copies and the clones of its outputs run under one lock,
-in stream order behind the previous replay: the pool's memory is in use
-only between a graph's launch and its outputs' clones. A graph then holds
-its static inputs and outputs, and the pool is as large as the largest
-program's activations, not their sum. At most ``CAPACITY`` graphs stay
-live; the oldest goes first.
+Graphs of one cache and device share one memory pool (a new one once
+all of them have been freed: the allocator refuses a capture into a pool
+whose graphs are all gone until it releases its memory). That is safe
+because every replay, its input copies and the clones of its outputs run
+under one lock, in stream order behind the previous replay: the pool's
+memory is in use only between a graph's launch and its outputs' clones. A
+capture reuses the blocks that earlier captures freed, but a freed block
+serves only a request no larger than itself, so the pool's size depends on
+the order of the captures: the largest program first, and the others fit
+in what it freed (bf16 at four photos alone 8.9 GiB, then the f32 and bf16
+one-photo forwards +0); the smallest first, and each larger program adds
+most of its own (12.0 GiB in that order, against 15.7 GiB for the three
+pools apart; ``scripts/torch_graph_pool.py``, NVIDIA H100 80GB HBM3, 700 W).
+A graph also holds its static inputs and outputs. At most ``CAPACITY``
+graphs stay live; the oldest goes first.
 
 CPU tensors run ``fn`` eagerly (every kernel wrapper sends them to its
 plain version), and so does every call under ``MATRIX_EYES_AOT=off``, the
@@ -57,7 +65,27 @@ persistent artefacts are ``_build/`` and the weight caches.
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counters' increments during a capture are recorded and added
 again at every replay (``_LaunchCounters``), so a forward counts 72
-attention and 24 conv3x3 launches however it ran.
+attention and 24 conv3x3 launches however it ran, and on a mesh the
+collectives it called (``parallel.collectives``' counts, bytes and gather
+shapes), which ``collectives.check_forward`` reads.
+
+On a device mesh (``parallel``: one process per rank) the forwards go
+through a cache of the mesh's own (``mesh_cache``), whose key also names
+the mesh's (data, model) shape and backend, as the JAX package salts its
+sharded forwards with ``|mesh=``. Rank 0 alone also runs ``preprocess``
+and the renders through the process's cache: were the forwards in it, rank
+0 would evict in another order than the other ranks. An NCCL collective is
+a CUDA kernel on a stream, so a capture records it with the rest of the
+forward, and a replay runs the 144 all-reduces and the merge all-gathers
+as the eager call did. The ranks must capture together and replay in one
+order: a rank that captured or replayed alone would wait forever on a
+collective that no other rank launches. So before each program every rank
+states its mode for the key (eager, capture or replay) in one all-reduce
+over the mesh, and where the ranks disagree every rank raises, naming the
+program and the modes. A gloo mesh runs eagerly: gloo moves a CUDA tensor
+through pinned host memory (``collectives._staged``), host work that a
+graph cannot record (a collective called while a gloo rank captures
+raises).
 """
 
 from __future__ import annotations
@@ -76,6 +104,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 import torch
 
 CAPACITY = 16  # live graphs
+MODES = ("eager", "capture", "replay")  # how a call runs its program
 _WARM_KEYS = 1024  # keys whose warm-up call ran, remembered for their second call
 
 
@@ -90,28 +119,36 @@ def _log_enabled() -> bool:
 # -- the wrappers' launch counters -------------------------------------------
 
 class _LaunchCounters:
-    """Every kernel wrapper's launch counter (ints and Counters): snapshot,
-    the difference of two snapshots, restore, and add a difference."""
+    """Every kernel wrapper's launch counter and the collectives' counts
+    (ints, Counters and the list of gather shapes, which only grows):
+    snapshot, the difference of two snapshots, restore, and add a
+    difference."""
 
     @staticmethod
     def _fields() -> List[Tuple[Any, str]]:
         from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
         from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
         from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
+        from matrix_eyes_tpu_torch.parallel import collectives
 
         return [(attention_qkv, "launches"), (attention_qkv, "launches_by_dtype"),
                 (attention_qkv, "launches_by_batch"), (attention_qkv, "launches_by_shape"),
                 (attention_flash, "launches"), (conv3x3, "launches"),
-                (conv3x3, "launches_by_shape"), (linker_scan, "launches")]
+                (conv3x3, "launches_by_shape"), (linker_scan, "launches"),
+                (collectives, "counts"), (collectives, "result_bytes"),
+                (collectives, "gather_shapes")]
 
     @classmethod
     def snapshot(cls) -> list:
-        return [collections.Counter(v) if isinstance(v, collections.Counter) else v
+        return [collections.Counter(v) if isinstance(v, collections.Counter)
+                else list(v) if isinstance(v, list) else v
                 for v in (getattr(o, a) for o, a in cls._fields())]
 
     @staticmethod
     def delta(before: list, after: list) -> list:
-        return [b2 - b1 for b1, b2 in zip(before, after)]
+        # a list's difference is the tail appended since the first snapshot
+        return [b2[len(b1):] if isinstance(b1, list) else b2 - b1
+                for b1, b2 in zip(before, after)]
 
     @classmethod
     def restore(cls, snap: list) -> None:
@@ -119,6 +156,8 @@ class _LaunchCounters:
             if isinstance(v, collections.Counter):
                 getattr(owner, attr).clear()
                 getattr(owner, attr).update(v)
+            elif isinstance(v, list):
+                getattr(owner, attr)[:] = v
             else:
                 setattr(owner, attr, v)
 
@@ -127,6 +166,8 @@ class _LaunchCounters:
         for (owner, attr), d in zip(cls._fields(), delta):
             if isinstance(d, collections.Counter):
                 getattr(owner, attr).update(d)
+            elif isinstance(d, list):
+                getattr(owner, attr).extend(d)
             elif d:
                 setattr(owner, attr, getattr(owner, attr) + d)
 
@@ -155,7 +196,8 @@ class CudaGraphs:
 
     def __init__(self):
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
-        self._pools: Dict[torch.device, Any] = {}
+        self._pools: Dict[torch.device, Any] = {}  # the pool of the device's live graphs
+        self._live: collections.Counter = collections.Counter()  # live graphs by device
 
     def applies(self, device: torch.device) -> bool:
         # a call made while this thread captures belongs to the outer graph
@@ -185,17 +227,21 @@ class CudaGraphs:
         side = self._streams.get(device)
         if side is None:
             side = self._streams[device] = torch.cuda.Stream(device)
+        if device not in self._pools:
             self._pools[device] = torch.cuda.graph_pool_handle()
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
+        self._live[device] += 1
+        weakref.finalize(graph, self._graph_gone, device)
         try:
             with torch.cuda.stream(side):
                 result = warm()
                 # "thread_local": the server's handler threads keep copying
                 # photos to pinned memory, reading results back and running
-                # renders eagerly while one thread captures; "global" would
-                # fail their host calls, and "relaxed" would let this
-                # thread's own unsafe calls pass unseen
+                # renders eagerly while one thread captures, and on an NCCL
+                # mesh ProcessGroupNCCL's watchdog thread queries its CUDA
+                # events; "global" would fail their calls, and "relaxed"
+                # would let this thread's own unsafe calls pass unseen
                 graph.capture_begin(pool=self._pools[device], capture_error_mode="thread_local")
                 try:
                     out = capture()
@@ -207,9 +253,60 @@ class CudaGraphs:
             t.record_stream(cur)
         return result, graph, out
 
+    def _graph_gone(self, device: torch.device) -> None:
+        self._live[device] -= 1
+        if not self._live[device]:
+            # the allocator keeps a pool whose graphs have all been freed
+            # until it releases the pool's memory, and refuses a capture into
+            # it ("use_count > 0"): the next capture opens a new pool
+            del self._pools[device]
+
     @staticmethod
     def replay(graph) -> None:
         graph.replay()
+
+
+class HostGraphs:
+    """A capture backend that needs no card, for the CPU tests and the mesh
+    rank functions they start (``parallel.checks.run_graph_cases``): the
+    warm-up runs the program, a "capture" runs its Python once more (as a
+    capture on the card does, collectives included) and a replay runs
+    nothing, so a replay returns the capture's outputs."""
+
+    def __init__(self):
+        self.captures = self.replays = 0
+
+    def applies(self, device: torch.device) -> bool:
+        return True
+
+    @staticmethod
+    def device_name(device: torch.device) -> str:
+        return "host"
+
+    @staticmethod
+    def memory(device: torch.device) -> int:
+        return 0
+
+    def warm_and_capture(self, device: torch.device, warm: Callable[[], Any],
+                         capture: Callable[[], Any]) -> Tuple[Any, Any, Any]:
+        result = warm()
+        self.captures += 1
+        return result, object(), capture()
+
+    def replay(self, graph) -> None:
+        self.replays += 1
+
+
+class NoGraphs:
+    """The backend of a cache whose every call runs eagerly (a gloo mesh)."""
+
+    @staticmethod
+    def applies(device: torch.device) -> bool:
+        return False
+
+    @staticmethod
+    def memory(device: torch.device) -> int:
+        return 0
 
 
 @lru_cache(maxsize=None)
@@ -296,6 +393,8 @@ class GraphCache:
         self._last_replay: Dict[torch.device, Any] = {}
         # the latest captures: (name, seconds, the pool's growth in bytes)
         self.captured: "collections.deque[Tuple[str, float, int]]" = collections.deque(maxlen=64)
+        # the latest calls: (name, one of MODES)
+        self.modes: "collections.deque[Tuple[str, str]]" = collections.deque(maxlen=256)
 
     def key(self, name: str, args: Sequence[Any], salt: str = "") -> tuple:
         """The cache key of ``fn(*args)`` under ``name`` and ``salt``."""
@@ -319,6 +418,7 @@ class GraphCache:
         CUDA graph (see the module's docstring)."""
         device = _device(args)
         if not enabled() or device is None or not self.backend.applies(device):
+            self._begin(name, "eager")
             return fn(*args)
         join_prefetch()
         key = self.key(name, args, salt)
@@ -336,10 +436,16 @@ class GraphCache:
                         while len(self._warm) > _WARM_KEYS:
                             gone, _ = self._warm.popitem(last=False)
                             self._key_locks.pop(gone, None)
+                    self._begin(name, "eager" if first else "capture")
                     if first:
                         return fn(*args)
                     return self._capture(name, fn, args, key, device)
+        self._begin(name, "replay")
         return self._replay(entry, args, device)
+
+    def _begin(self, name: str, mode: str) -> None:
+        """Record a call's mode (``modes``) just before it runs."""
+        self.modes.append((name, mode))
 
     def _capture(self, name, fn, args, key, device):
         t0 = time.perf_counter()
@@ -419,6 +525,65 @@ class GraphCache:
 
 
 _cache = GraphCache()
+
+
+class MeshGraphCache(GraphCache):
+    """The graph cache of one rank's forwards on a mesh (``mesh_cache``):
+    the key names the mesh, and every call runs in the mode of every rank's
+    call or raises on every rank (see the module's docstring). A gloo mesh
+    gets ``NoGraphs`` unless a ``backend`` is given (the CPU tests give
+    ``HostGraphs``)."""
+
+    def __init__(self, mesh, backend=None, capacity: int = CAPACITY):
+        if backend is None and mesh.backend == "gloo":
+            backend = NoGraphs()
+        super().__init__(backend, capacity)
+        self.shape = (mesh.data, mesh.model)
+        self.mesh_backend = mesh.backend
+        self.rank = mesh.rank
+        # the vote's device: NCCL reduces on the card, gloo on the host
+        self._vote_device = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+    def key(self, name: str, args: Sequence[Any], salt: str = "") -> tuple:
+        data, model = self.shape
+        return super().key(name, args, f"{salt}|mesh={{'data': {data}, 'model': {model}}}"
+                                       f"|{self.mesh_backend}")
+
+    def _begin(self, name: str, mode: str) -> None:
+        """Hold this rank's mode against every rank's, in one all-reduce of
+        a one-hot vote over the world (the mesh's ranks): unless all ranks
+        run ``name`` in one mode, every rank raises RuntimeError here, before
+        any of them captures, replays or calls a collective of the
+        program."""
+        import torch.distributed as dist
+
+        super()._begin(name, mode)
+        data, model = self.shape
+        if data * model == 1 or isinstance(self.backend, NoGraphs):
+            return  # nothing to agree on: one rank, or every rank eager by rule
+        vote = torch.tensor([int(m == mode) for m in MODES], dtype=torch.int32,
+                            device=self._vote_device)
+        dist.all_reduce(vote)
+        counts = vote.tolist()
+        if max(counts) != data * model:
+            seen = ", ".join(f"{n} {m}" for m, n in zip(MODES, counts) if n)
+            raise RuntimeError(f"the ranks of the {data}x{model} mesh disagree on how to run "
+                               f"{name}: {seen} (rank {self.rank}: {mode})")
+
+
+_mesh_caches: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_mesh_caches_lock = threading.Lock()
+
+
+def mesh_cache(mesh, backend=None) -> MeshGraphCache:
+    """The graph cache of ``mesh``'s forwards on this rank, made on the
+    first call (with ``backend``: the card's graphs by default, ``NoGraphs``
+    on a gloo mesh) and gone with the mesh."""
+    with _mesh_caches_lock:
+        cache = _mesh_caches.get(mesh)
+        if cache is None:
+            cache = _mesh_caches[mesh] = MeshGraphCache(mesh, backend)
+        return cache
 
 
 def call_cached(name: str, fn: Callable, args: Tuple, salt: str = ""):

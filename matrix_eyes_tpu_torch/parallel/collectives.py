@@ -19,6 +19,14 @@ from the layout) cannot arise here.
 A gloo group cannot take a CUDA tensor for every collective (several ranks
 sharing one card run over gloo), so for that backend a CUDA tensor is
 copied through pinned host memory, explicitly; NCCL takes it as it is.
+
+Under NCCL a collective is a kernel on a stream and does nothing a CUDA
+graph capture forbids (no host read, no pinned buffer, no sync; the
+gathered parts' ``torch.cat`` allocates from the graph's pool), so the
+mesh's forwards are captured with their collectives (``aot.mesh_cache``).
+gloo's exchange is host work that a graph cannot record: a gloo collective
+called while the current stream captures raises RuntimeError, naming its
+kind, rather than being left out of the graph.
 """
 
 from __future__ import annotations
@@ -60,11 +68,15 @@ def _count(kind: str, result: torch.Tensor) -> None:
     result_bytes[kind] += result.numel() * result.element_size()
 
 
-def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def _staged(mesh: Mesh, t: torch.Tensor, kind: str) -> torch.Tensor:
     """The tensor the backend can take: a pinned host copy of a CUDA tensor
     under gloo, else ``t`` itself or, where it is not contiguous (the
-    backends read raw storage), a contiguous copy."""
+    backends read raw storage), a contiguous copy. Raises for a gloo
+    ``kind`` of collective called during a CUDA graph capture."""
     if mesh.backend == "gloo" and t.is_cuda:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"a gloo {kind} cannot be captured in a CUDA graph: gloo "
+                               "exchanges host memory, which a replay would skip")
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t)
         return host
@@ -79,7 +91,7 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Te
     group, size = _group(mesh, axis)
     if size == 1:
         return t
-    buf = _staged(mesh, t)
+    buf = _staged(mesh, t, "all-reduce")
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     out = buf.to(t.device)
     _count("all-reduce", out)
@@ -94,7 +106,7 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Te
     group, size = _group(mesh, axis)
     if size == 1:
         return t
-    buf = _staged(mesh, t)
+    buf = _staged(mesh, t, "all-gather")
     parts = [torch.empty_like(buf) for _ in range(size)]
     dist.all_gather(parts, buf, group=group)
     out = torch.cat(parts).to(t.device)
@@ -110,7 +122,7 @@ def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
 
     if mesh.size == 1:
         return t
-    buf = _staged(mesh, t)
+    buf = _staged(mesh, t, "broadcast")
     dist.broadcast(buf, src=src)
     if buf is not t:
         t.copy_(buf)

@@ -13,8 +13,10 @@ weights); writing is the per-image 'output' stage.
 The device programs run through the CUDA-graph cache (``aot.call_cached``)
 under the JAX package's names: ``preprocess``, ``fwd_fnorm`` and
 ``fwd_fov`` for one photo, ``fwd_fnorm_b{N}`` and ``fwd_mixed_b{N}`` for a
-batch of N. On a device mesh the forwards run eagerly: a graph does not
-capture their collectives.
+batch of N. On a device mesh the forwards go through the mesh's own cache
+(``aot.mesh_cache``): over NCCL every rank captures its forward with its
+collectives and replays it in lock step with the other ranks; a gloo mesh
+runs them eagerly.
 """
 
 from __future__ import annotations
@@ -61,10 +63,11 @@ def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
 
 
 def _program(mesh, name: str, fn, args: tuple, salt: str):
-    """A forward through the CUDA-graph cache on one device; on a mesh
-    eagerly (gloo collectives cannot be captured)."""
+    """A forward through the process's CUDA-graph cache on one device, and
+    through the mesh's on a mesh (its key names the mesh; every rank runs
+    the call in one mode; gloo runs it eagerly)."""
     if mesh is not None:
-        return fn(*args)
+        return aot.mesh_cache(mesh).call(name, fn, args, salt)
     return aot.call_cached(name, fn, args, salt)
 
 

@@ -4,6 +4,7 @@ against the one-card forward on the same weights and image.
 
     python3 scripts/torch_mesh_check.py [--meshes 2x2,1x4,4x1] [--batch 1] [--runs 3]
     python3 scripts/torch_mesh_check.py --cli [--meshes 2x2,4x1]
+    python3 scripts/torch_mesh_check.py --graphs [--meshes 2x2,1x4,4x1] [--out FILE]
 
 Needs as many cards as the largest mesh (one rank per card, NCCL between
 them: ``parallel.launch`` with its default devices). Seeded random
@@ -30,6 +31,21 @@ ranks loading the caches on the host. The photos, the bf16 gate and the
 PNG gate are ``chip_smoke.py``'s (its phase-4 photo and phase-9 variants;
 each PNG within a mean of ``PNG_MEAN_COUNTS`` u8 counts of the one-card
 run's), and its walls are printed.
+
+``--graphs`` runs the forwards through the mesh's CUDA-graph cache
+(``parallel.checks.run_graph_cases``) at one photo with the FOV head
+(``fwd_fov``) and at four (``fwd_mixed_b4``), on one card (1x1) and on
+each mesh: every rank's forward eagerly, then warm-up, capture and replay,
+the replay bit-equal to the eager call on every rank, the ranks' replays
+equal, 72/24 launches and the layout's collectives on every call, the
+replay within the bf16 gate of the one-card forward; then graphs against
+eager in turns (graphs, eager, eager, graphs): per rank the forward's wall
+by CUDA events over 10 calls (B=1; 3 at B=4), host
+issue and host CPU per call, device time by ``torch.profiler`` (two calls
+a mode; also by kernel family, NCCL's kernels apart, whose time includes
+the wait for the other ranks), the capture's seconds and the graph pool's
+bytes. ``--out``
+writes the per-rank numbers as JSON.
 """
 
 from __future__ import annotations
@@ -114,6 +130,71 @@ def cli_check(meshes, out_dir: str) -> bool:
     return ok
 
 
+def graphs_check(meshes, weights: str, img4, out: str) -> bool:
+    """The ``--graphs`` mode (module docstring). Returns whether every
+    check held."""
+    import torch
+
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.parallel import launch
+    from matrix_eyes_tpu_torch.parallel.checks import run_graph_cases
+
+    cfg = DEPTH_PRO
+    cases = [dict(cfg=cfg, params=weights, img=img4[:1], timing=10),
+             dict(cfg=cfg, params=weights, img=img4, timing=3)]
+    ok, refs, report = True, {}, {}
+    for data, model in [(1, 1)] + list(meshes):
+        ranks = launch(run_graph_cases, (data, model), cases, timeout=900)
+        for i, case in enumerate(cases):
+            got = [r["cases"][i] for r in ranks]
+            tag = f"{data}x{model} B={case['img'].shape[0]}"
+            held = all(r["backend"] == "nccl" and not r["foreign_modules"] for r in ranks)
+            for g in got:
+                modes = [c["mode"] for c in g["calls"]]
+                launches = [(c["kernels"]["attention_qkv"], c["kernels"]["conv3x3"])
+                            for c in g["calls"]]
+                replay = g["calls"][3]["report"]["collectives"]
+                g_ok = (modes == ["eager", "eager", "capture", "replay"] and g["bit_equal"]
+                        and launches == [(3 * cfg.depth, 24)] * 4
+                        and all(c["report"]["collectives"] == replay for c in g["calls"]))
+                held &= g_ok
+                t = g["timing"]
+                print(f"{tag} rank {g['rank']} {g['calls'][0]['program']}: modes {modes}; "
+                      f"replay bit-equal to eager {g['bit_equal']}; launches per call "
+                      f"{launches}; collectives per replay (calls, bytes) "
+                      f"{ {k: (v['calls'], v['bytes']) for k, v in replay.items()} }; capture "
+                      f"{g['capture_s']:.3f} s, pool +{g['capture_pool_growth'] / 2**20:.1f} MiB,"
+                      f" graph pool {g['pool_bytes'] / 2**30:.3f} GiB "
+                      f"{'ok' if g_ok else 'FAIL'}")
+                for mode in ("graphs", "eager"):
+                    runs, dev = t["runs"][mode], t["device"][mode]
+                    print(f"{tag} rank {g['rank']} {mode}: wall ms "
+                          f"{[round(x['wall_ms'], 3) for x in runs]}, host issue ms "
+                          f"{[round(x['issue_ms'], 3) for x in runs]}, host CPU ms "
+                          f"{[round(x['host_cpu_ms'], 2) for x in runs]}; device ms {dev[0]:.3f} "
+                          f"in {dev[1]:.0f} kernels, {dev[2]:.0f} graph launches per call; by "
+                          f"family {{{', '.join(f'{k}: {v:.3f}' for k, v in sorted(dev[3].items()))}}}")
+            same = all(torch.equal(g["inv"], got[0]["inv"]) for g in got)
+            if (data, model) == (1, 1):
+                refs[i] = got[0]["inv"]
+            gap = rel_gap(got[0]["inv"], refs[i])
+            held &= same and gap <= BF16_REL
+            ok &= held
+            print(f"{tag}: ranks' replays equal {same}; gap to one card {gap:.3e} (gate "
+                  f"{BF16_REL:g}) {'ok' if held else 'FAIL'}")
+            report[tag] = [{k: g[k] for k in ("rank", "bit_equal", "capture_s",
+                                              "capture_pool_growth", "pool_bytes", "timing")}
+                           | {"modes": [c["mode"] for c in g["calls"]],
+                              "collectives": g["calls"][3]["report"]["collectives"]}
+                           for g in got] + [{"gap_to_one_card": gap, "ranks_equal": same,
+                                             "ok": held}]
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(report, f, indent=1)
+    return ok
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -129,6 +210,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--cli", action="store_true", help="run the command line per mesh")
+    ap.add_argument("--graphs", action="store_true",
+                    help="the forwards through the mesh's CUDA-graph cache against eager")
+    ap.add_argument("--out", default=None, help="--graphs: write the numbers as JSON here")
     args = ap.parse_args(argv)
     meshes = [tuple(int(d) for d in m.split("x")) for m in args.meshes.split(",")]
     if not torch.cuda.is_available():
@@ -158,8 +242,16 @@ def main(argv=None) -> int:
     torch.save(tree_map(lambda _p, t: t.cpu(), params), weights)
     del params
     torch.cuda.empty_cache()
-    img = np.random.RandomState(0).uniform(-1, 1, (args.batch, cfg.img_size, cfg.img_size, 3))
+    img = np.random.RandomState(0).uniform(
+        -1, 1, (4 if args.graphs else args.batch, cfg.img_size, cfg.img_size, 3))
     img = torch.from_numpy(img.astype(np.float32)).to(torch.bfloat16)
+    if args.graphs:
+        try:
+            ok = graphs_check(meshes, weights, img, args.out)
+        finally:
+            os.remove(weights)
+        print(json.dumps({"device": smi, "graphs": ok}))
+        return 0 if ok else 1
     case = dict(cfg=cfg, params=weights, img=img, runs=args.runs)
     summary = {"device": smi, "batch": args.batch, "meshes": {}}
     failed = False

@@ -11,6 +11,7 @@ forwards' device-tensor focal lengths, and ``--profile=DIR``.
 """
 
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -40,40 +41,33 @@ from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
 from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
 from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
+from matrix_eyes_tpu_torch.parallel import collectives
+from matrix_eyes_tpu_torch.parallel.sharding import Mesh
+from matrix_eyes_tpu_torch import pipeline
 from matrix_eyes_tpu_torch.pipeline import extract_depth, extract_depth_batch
 from matrix_eyes_tpu_torch.pt.convert import from_jax_params
 
 import torch_ref
 
 
-class FakeGraphs:
-    """A capture backend without a card: the warm-up runs the program, a
-    "capture" runs its Python once more (as capturing on the card does),
-    a replay runs nothing."""
+class FakeGraphs(aot.HostGraphs):
+    """The package's capture backend without a card (the warm-up runs the
+    program, a "capture" runs its Python once more, as capturing on the
+    card does, a replay runs nothing), which can also wait before the
+    capture or fail it."""
 
     def __init__(self, fail: bool = False, delay: float = 0.0):
+        super().__init__()
         self.fail, self.delay = fail, delay
-        self.captures = self.replays = 0
-
-    def applies(self, device):
-        return True
-
-    def device_name(self, device):
-        return "fake"
-
-    def memory(self, device):
-        return 0
 
     def warm_and_capture(self, device, warm, capture):
-        result = warm()
-        time.sleep(self.delay)
-        if self.fail:
-            raise RuntimeError("operation not permitted when stream is capturing")
-        self.captures += 1
-        return result, object(), capture()
+        def failing_capture():
+            time.sleep(self.delay)
+            if self.fail:
+                raise RuntimeError("operation not permitted when stream is capturing")
+            return capture()
 
-    def replay(self, graph):
-        self.replays += 1
+        return super().warm_and_capture(device, warm, failing_capture)
 
 
 @pytest.fixture
@@ -136,6 +130,20 @@ def test_key_changes_with(change, monkeypatch):
     assert cache.key(name, tuple(args), salt) != base
 
 
+def test_key_changes_with_the_mesh():
+    # the JAX package salts a sharded forward with |mesh=: a mesh's key
+    # names its (data, model) shape and its backend
+    args = (_TREE, _X, 2.0)
+    keys = [aot.GraphCache(FakeGraphs()).key("fwd_fov", args, "cfg")]
+    for data, model, backend in ((1, 2, "nccl"), (2, 1, "nccl"), (1, 2, "gloo"), (2, 2, "nccl")):
+        mesh = Mesh(data=data, model=model, backend=backend)
+        keys.append(aot.MeshGraphCache(mesh, FakeGraphs()).key("fwd_fov", args, "cfg"))
+    assert len(set(keys)) == len(keys)
+    # the same shape and backend on another rank: the same program
+    other = Mesh(data=1, model=2, rank=1, backend="nccl")
+    assert aot.MeshGraphCache(other, FakeGraphs()).key("fwd_fov", args, "cfg") == keys[1]
+
+
 def test_key_is_the_same_for_the_same_leaves():
     # a new dict over the same tensors is the same weights: one graph
     cache = aot.GraphCache(FakeGraphs())
@@ -173,7 +181,8 @@ def test_eager_calls_run_fn_every_time(mode, monkeypatch):
 # -- capture and replay ----------------------------------------------------------------
 
 def _launch_everything():
-    """What the kernel wrappers count when their kernels launch."""
+    """What the kernel wrappers count when their kernels launch, and the
+    collectives when a mesh's forward calls them."""
     attention_qkv.launches += 1
     attention_qkv.launches_by_dtype[torch.bfloat16] += 1
     attention_qkv.launches_by_batch[35] += 1
@@ -182,6 +191,11 @@ def _launch_everything():
     conv3x3.launches += 2
     conv3x3.launches_by_shape[(1, 768, 768, 256, 256, torch.bfloat16, True, 2, True)] += 2
     linker_scan.launches += 1
+    collectives.counts["all-reduce"] += 2
+    collectives.result_bytes["all-reduce"] += 2 * 4096
+    collectives.counts["all-gather"] += 1
+    collectives.result_bytes["all-gather"] += 512
+    collectives.gather_shapes.append((36, 24, 24, 1024))
 
 
 @pytest.mark.parametrize("replays", [1, 5])
@@ -211,6 +225,13 @@ def test_replays_add_the_capture_counts(replays, counters, graphs_on):
     assert conv3x3.launches - before[5] == 2 * runs
     assert sum(delta[6].values()) == 2 * runs
     assert linker_scan.launches - before[7] == runs
+    # the collectives of a mesh's forward: calls, bytes and the gather
+    # shapes a replay appends as the eager call did
+    assert delta[8] == collections.Counter({"all-reduce": 2 * runs, "all-gather": runs})
+    assert delta[9] == collections.Counter({"all-reduce": 2 * 4096 * runs,
+                                            "all-gather": 512 * runs})
+    assert delta[10] == [(36, 24, 24, 1024)] * runs
+    assert collectives.gather_shapes[:len(before[10])] == before[10]
 
 
 def test_replay_copies_inputs_and_clones_outputs(graphs_on):
@@ -291,8 +312,12 @@ def test_a_freed_parameter_tree_ends_its_graph(graphs_on):
     assert cache.live() == []
 
 
-def test_a_failed_capture_raises_without_an_eager_fallback(graphs_on):
-    cache = aot.GraphCache(FakeGraphs(fail=True))
+@pytest.mark.parametrize("where", ["process", "mesh"])
+def test_a_failed_capture_raises_without_an_eager_fallback(graphs_on, where):
+    if where == "process":
+        cache = aot.GraphCache(FakeGraphs(fail=True))
+    else:  # a mesh of one rank, whose lock step has no other rank to ask
+        cache = aot.MeshGraphCache(Mesh(data=1, model=1, backend="nccl"), FakeGraphs(fail=True))
     calls = []
 
     def fn(x):
@@ -304,6 +329,94 @@ def test_a_failed_capture_raises_without_an_eager_fallback(graphs_on):
         cache.call("render_depthmap", fn, (_X,))
     # the capture call's own eager run, and no call of fn behind the failure
     assert len(calls) == 2 and cache.live() == []
+
+
+def test_a_mesh_cache_records_each_calls_mode(graphs_on):
+    mesh = Mesh(data=1, model=1, backend="nccl")
+    cache = aot.mesh_cache(mesh, FakeGraphs())
+    assert aot.mesh_cache(mesh) is cache and aot.mesh_cache(Mesh(1, 1)) is not cache
+    for _ in range(3):
+        cache.call("fwd_fov", lambda x: x + 1, (_X,))
+    with aot.disabled():
+        cache.call("fwd_fov", lambda x: x + 1, (_X,))
+    assert list(cache.modes) == [("fwd_fov", m) for m in ("eager", "capture", "replay", "eager")]
+
+
+def test_a_gloo_mesh_never_reaches_the_capture_backend(graphs_on, monkeypatch):
+    # gloo stages CUDA tensors through host memory: its mesh's forwards run
+    # eagerly by rule, on every call, and no graph backend is consulted
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a gloo mesh reached the CUDA-graph backend")
+
+    monkeypatch.setattr(aot.CudaGraphs, "applies", refuse)
+    monkeypatch.setattr(aot.CudaGraphs, "warm_and_capture", refuse)
+    mesh = Mesh(data=1, model=2, backend="gloo")
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x * 2
+
+    for _ in range(4):
+        torch.testing.assert_close(pipeline._program(mesh, "fwd_fov", fn, (_X,), "cfg"), _X * 2)
+    cache = aot.mesh_cache(mesh)
+    assert isinstance(cache.backend, aot.NoGraphs) and len(calls) == 4
+    assert [m for _n, m in cache.modes] == ["eager"] * 4 and cache.live() == []
+
+
+@pytest.mark.parametrize("kind", ["all-reduce", "all-gather", "broadcast"])
+def test_a_gloo_collective_refuses_a_capture(kind, monkeypatch):
+    # a capture would record the pinned-memory copies but not gloo's
+    # exchange: the collective raises, naming its kind, before any of it
+    t = torch.ones(4)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    mesh = Mesh(data=2, model=2, backend="gloo")
+    call = {"all-reduce": lambda: collectives.all_reduce_sum(t, mesh, "model"),
+            "all-gather": lambda: collectives.all_gather_rows(t, mesh, "data"),
+            "broadcast": lambda: collectives.broadcast(t, mesh)}[kind]
+    with pytest.raises(RuntimeError, match=f"a gloo {kind} cannot be captured"):
+        call()
+
+
+def test_a_pool_whose_graphs_were_all_freed_is_not_captured_into(monkeypatch):
+    # the allocator refuses a capture into a pool whose graphs have all been
+    # freed (until its memory is released): the card's backend shares one
+    # pool among live graphs and opens a new one once the last is gone
+    handles = iter(range(1, 100))
+    pools = []
+
+    class Stream:
+        def __init__(self, device=None):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def capture_begin(self, pool, capture_error_mode):
+            pools.append(pool)
+
+        def capture_end(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: next(handles))
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    backend, dev = aot.CudaGraphs(), torch.device("cuda", 0)
+
+    def capture():
+        return backend.warm_and_capture(dev, lambda: None, lambda: None)[1]
+
+    first, second = capture(), capture()
+    del first
+    third = capture()  # the pool still has a live graph: shared
+    del second, third
+    assert backend.memory(dev) == 0  # no pool of live graphs: nothing to count
+    capture()  # every graph of the pool is gone: a new pool
+    assert pools == [1, 1, 1, 2]
 
 
 def test_a_failed_prefetch_raises_at_the_first_program(monkeypatch, graphs_on):

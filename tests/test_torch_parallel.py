@@ -45,7 +45,12 @@ from matrix_eyes_tpu_torch.io.image import load_source_image
 from matrix_eyes_tpu_torch.ops.quant import quantize_params
 from matrix_eyes_tpu_torch.parallel import collectives, launch
 from matrix_eyes_tpu_torch.parallel import sharding as tsharding
-from matrix_eyes_tpu_torch.parallel.checks import cli_rank_failing, run_cases, run_entry_points
+from matrix_eyes_tpu_torch.parallel.checks import (
+    cli_rank_failing,
+    run_cases,
+    run_entry_points,
+    run_graph_cases,
+)
 from matrix_eyes_tpu_torch.pipeline import extract_depth_batch, forward_batch, preprocess_image
 from matrix_eyes_tpu_torch.pt.convert import from_jax_params, load_checkpoint
 
@@ -419,6 +424,60 @@ def test_batch_8x1_equals_one_image_runs(tiny, world_8):
         _close_forward({"inv": got["inv"][i:i + 1], "fov": got["fov"][i:i + 1]}, inv, fov)
 
 
+# --- the mesh's forwards through its CUDA-graph cache, one world for every case ------------
+
+@pytest.fixture(scope="module")
+def graphs_world_2(tiny):
+    """One 2-rank gloo world running the forwards through the mesh's graph
+    cache on ``aot.HostGraphs`` (no card): TINY at 1x2 and at 2x1 (one
+    image, the FOV head), two images at 2x1 (the batch split, the mixed
+    forward), then the ranks disagreeing on a mode at 1x2."""
+    _, tparams, img, _ = tiny
+    cases = [_case("TINY", tparams, img), _case("TINY", tparams, img, model=1),
+             _case("TINY", tparams, _image(TINY, 2, 2), model=1, f_norms=[None, 0.9]),
+             _case("TINY", tparams, img, disagree_rank=1)]
+    results = launch(run_graph_cases, (1, 2), cases, graphs="host", devices=["cpu"] * 2,
+                     timeout=300)
+    for r in results:
+        assert r["foreign_modules"] == [], "a rank loaded jax or the JAX package"
+    return results
+
+
+@pytest.mark.parametrize("index,mesh_shape,program,collective_calls", [
+    (0, (1, 2), "fwd_fov", {"all-reduce": 2 * TINY.depth * 3}),
+    (1, (2, 1), "fwd_fov", {"all-gather": 3}),
+    (2, (2, 1), "fwd_mixed_b2", {"all-gather": 3 + 2}),  # the merge, then inverse depth and FOV
+])
+def test_graph_replay_equals_eager(tiny, graphs_world_2, index, mesh_shape, program,
+                                   collective_calls):
+    _jparams, _tparams, _img, (one_inv, one_fov) = tiny
+    for r in graphs_world_2:
+        got = r["cases"][index]
+        assert got["mesh"] == mesh_shape
+        assert [(c["program"], c["mode"]) for c in got["calls"]] == [
+            (program, mode) for mode in ("eager", "eager", "capture", "replay")]
+        assert got["bit_equal"]
+        # every call counts one forward's collectives, the replay included
+        for c in got["calls"]:
+            assert {k: v["calls"] for k, v in c["report"]["collectives"].items()} == \
+                collective_calls
+            assert c["report"] == got["calls"][0]["report"]
+            assert c["kernels"] == got["calls"][0]["kernels"]
+        assert torch.equal(got["inv"], graphs_world_2[0]["cases"][index]["inv"])
+    if index < 2:  # one image: the one-device forward, in canonical units
+        f_norm = float(np.tan(0.5 * one_fov[0] * np.pi / 180.0) / 0.5)
+        _close(graphs_world_2[0]["cases"][index]["inv"].numpy() * f_norm, one_inv[0] * f_norm)
+
+
+def test_ranks_that_disagree_on_a_mode_raise_on_every_rank(graphs_world_2):
+    # rank 1 runs the capture call with the cache off: both ranks raise
+    # after the vote, before either captures or calls a collective of it
+    for rank, r in enumerate(graphs_world_2):
+        msg = r["cases"][3]["disagreement"]
+        assert "1x2 mesh disagree on how to run fwd_fov: 1 eager, 1 capture" in msg
+        assert f"(rank {rank}: {'eager' if rank == 1 else 'capture'})" in msg
+
+
 def test_launch_raises_a_rank_failure(tiny):
     # every rank refuses a model degree its world does not divide; the
     # launcher ends the ranks and raises with a rank's traceback
@@ -541,6 +600,8 @@ def test_session_on_a_2x2_mesh_matches_one_device(tiny, cli_workdir):
     ranks = launch(run_entry_points, (2, 2), TINY, weights, calls, devices=["cpu"] * 4,
                    timeout=300)
     assert all(r["foreign_modules"] == [] for r in ranks)
+    # a gloo mesh runs its forwards eagerly, on every rank and every call
+    assert all(c["modes"] == ["eager"] for r in ranks for c in r["calls"])
     img = preprocess_image(load_source_image(src).rgb, TINY.img_size, torch.float32, "cpu")
     want = forward_batch(TINY, tparams, img, [None]).numpy()
     _, fov = tdepth_pro.forward_with_fov(TINY, tparams, img)
