@@ -31,9 +31,12 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    ViT's shape, conv3x3 at every conv shape of the forward (the bound at
    the f16 dense peak, 989 TFLOP/s; SDPA and ``F.conv2d`` in f16);
 4. the main path, ``pipeline.extract_depth``, on a synthetic 3024x4032
-   photo at full DEPTH_PRO width (seeded random weights, bf16): launch
-   counts, conv3x3's launches by shape (which weight phase 3's times into
-   per-forward sums), finite inverse depth, a 4032x3024 PNG;
+   photo at full DEPTH_PRO width (seeded random weights, bf16): the port's
+   logical FLOP ledger of one photo (``matrix_eyes_tpu_torch.flops``)
+   stage by stage with and without the FOV head and the card's dense bf16
+   peak by its exact name, launch counts, conv3x3's launches by shape
+   (which weight phase 3's times into per-forward sums), finite inverse
+   depth, a 4032x3024 PNG;
 5. the same path under ``--dtype f32`` (f32 weights from the same seed,
    ``RuntimeConfig(dtype=torch.float32)``) on the phase-4 photo: the same
    checks, every conv3x3 launch f32, and the f32 per-forward sums;
@@ -124,7 +127,10 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    written eagerly and three times through the cache, byte for byte the
    same, one linker_scan launch each; graphs against eager in turns: the
    forward's wall (CUDA events), host time and device time (torch.profiler)
-   per call under bf16, mixed, int8 and f32 at one photo and bf16 at four;
+   per call under bf16, mixed, int8 and f32 at one photo and bf16 at four,
+   with each forward's model TFLOP and MFU (``flops.mfu`` against the
+   card's dense bf16 peak, not reported for a card ``flops._PEAKS`` does
+   not name) over the graphs' device time and over their walls;
    the captures' cost and the graph pool's bytes; a clone's cost;
    ``cli.main(["--profile=DIR", ...])`` over three photos whose forwards
    replay, its trace holding their kernels; and the server burst with
@@ -216,10 +222,12 @@ E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
 STEREO_SEED = 7
 
 # the H100 SXM's dense peaks (NVIDIA data sheet, 700 W): bound_ms is the
-# larger of the bytes a call must move and the FLOPs it must do over these
+# larger of the bytes a call must move and the FLOPs it must do over these;
+# bf16 and f16 (989 TFLOP/s) are the port's FLOP ledger's peak for the card
+# (``flops._PEAKS``), the number MFU is measured against
+H100_SXM = "NVIDIA H100 80GB HBM3"
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"bf16": 989e12, "f16": 989e12, "tf32": 495e12,
-                "f32": 67e12}  # tensor cores; f32 CUDA cores
+PEAK_FLOPS_S = {"tf32": 495e12, "f32": 67e12}  # tensor cores; f32 CUDA cores
 
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
@@ -487,10 +495,18 @@ def phase_build() -> None:
           f"27000 {scan.me_linker_scan_smem_bytes(30000, 27000)} B")
 
 
+def peak_flops_s(dt: str) -> float:
+    """The H100 SXM's dense peak for dt, FLOP/s; bf16 and f16 from the
+    port's FLOP ledger."""
+    from matrix_eyes_tpu_torch.flops import _PEAKS
+
+    return _PEAKS[H100_SXM] if dt in ("bf16", "f16") else PEAK_FLOPS_S[dt]
+
+
 def bound_ms(flops: float, nbytes: float, dt: str) -> tuple:
     """(least ms, what bounds it): the larger of bytes over the memory rate
     and FLOPs over the peak rate for dt."""
-    t_ops = flops / PEAK_FLOPS_S[dt] * 1e3
+    t_ops = flops / peak_flops_s(dt) * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -784,6 +800,27 @@ def synthetic_photo():
     return SourceImage(rgb=rgb, original_size=(4032, 3024), focal_length_35mm=None)
 
 
+def print_ledger(dev) -> None:
+    """The port's logical FLOP ledger of one DEPTH_PRO photo, stage by
+    stage, with and without the FOV head, and the card's dense bf16 peak,
+    looked up by its exact name."""
+    import torch
+
+    from matrix_eyes_tpu_torch import flops
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+
+    fov, no_fov = flops.model_flops(DEPTH_PRO), flops.model_flops(DEPTH_PRO, with_fov=False)
+    print("[4] logical FLOP ledger of one DEPTH_PRO photo (matrix_eyes_tpu_torch.flops), "
+          "TFLOP with / without the FOV head:")
+    for stage, v in fov.items():
+        without = f"{no_fov[stage] / 1e12:.4f}" if stage in no_fov else "-"
+        print(f"[4]   {stage:<15} {v / 1e12:.4f} / {without}")
+    name = torch.cuda.get_device_name(dev)
+    peak = flops.device_peak_flops(dev)
+    print(f"[4] dense bf16 peak of {name!r}: "
+          + (f"{peak / 1e12:.0f} TFLOP/s" if peak else "none in flops._PEAKS, MFU not reported"))
+
+
 def phase_main_path(dev) -> tuple:
     import torch
 
@@ -796,6 +833,7 @@ def phase_main_path(dev) -> tuple:
     params = init_params(DEPTH_PRO, torch.Generator(device=dev).manual_seed(0), dev, dtype)
     torch.cuda.synchronize()
     print(f"[4] random DEPTH_PRO weights on the card in {time.perf_counter() - t0:.1f} s")
+    print_ledger(dev)
     src = synthetic_photo()
     counts, conv_shapes, inv = depth_map_runs(dev, params, src, dtype, 4, "depthmap")
     return counts, conv_shapes, inv, params, src
@@ -2013,7 +2051,7 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
 
     import torch
 
-    from matrix_eyes_tpu_torch import aot, cli, pipeline
+    from matrix_eyes_tpu_torch import aot, cli, flops, pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig, parse_dtype_policy
     from matrix_eyes_tpu_torch.models.init import init_params
     from matrix_eyes_tpu_torch.output.depthmap import (
@@ -2113,8 +2151,16 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
     print(f"[17] checks {time.perf_counter() - t_phase:.1f} s; graphs captured (name, s, pool "
           f"growth MiB): {[(n, round(s, 4), round(b / 2**20, 1)) for n, s, b in cache.captured]}")
 
-    # graphs against eager, in turns (graphs, eager, eager, graphs)
+    # graphs against eager, in turns (graphs, eager, eager, graphs). Every
+    # cell runs the FOV head on each photo: B=1 is fwd_fov, and B=4 with no
+    # focal length is fwd_mixed_b4 (forward_batch's branch where not every
+    # f_norm is known: the FOV head over the whole batch), so each cell's
+    # logical FLOPs are model_flops(cfg, batch, with_fov=True)
     cells = [("bf16", 1, 10), ("mixed", 1, 5), ("int8", 1, 5), ("f32", 1, 3), ("bf16", 4, 3)]
+    peak = flops.device_peak_flops(dev)
+    if peak is None:
+        print(f"[17] MFU not reported: flops._PEAKS has no peak for card name "
+              f"{torch.cuda.get_device_name(dev)!r}")
     timing = {}
     for policy, batch, calls in cells:
         if batch == 1:
@@ -2146,6 +2192,17 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
                   f"{[round(x['host_cpu_ms'], 2) for x in r]}; device ms "
                   f"{dev_ms[mode][0]:.3f} in {dev_ms[mode][1]:.0f} kernels, "
                   f"{dev_ms[mode][2]:.0f} graph launches per call")
+        tflop = flops.model_flops(cfg, batch=batch, with_fov=True)["total"]
+        line = f"[17] {cell}: {tflop / 1e12:.4f} model TFLOP a forward; MFU "
+        if peak is None:
+            print(line + "not reported")
+            continue
+        walls_ms = [x["wall_ms"] for x in runs["graphs"]]
+        on_walls = [round(100 * flops.mfu(tflop, w / 1e3, peak), 2) for w in walls_ms]
+        print(line + f"{100 * flops.mfu(tflop, dev_ms['graphs'][0] / 1e3, peak):.2f} % over "
+              f"the graphs' device time ({dev_ms['graphs'][0]:.3f} ms), {on_walls} % over "
+              f"their walls ({[round(w, 3) for w in walls_ms]} ms), of "
+              f"{peak / 1e12:.0f} TFLOP/s")
     # a replay's clones: the forward's (1, S, S) f32 and a 12 MP u8 render
     for shape, dtype in (((1, cfg.img_size, cfg.img_size), torch.float32),
                          ((3024, 4032, 3), torch.uint8)):
