@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 1. environment: versions, the card, its power limit, host encoders;
-2. build the three CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
+2. build the four CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
    nvcc each, all at once), and print ptxas's registers, spills and the
-   dynamic shared memory of the tensor-core kernels;
+   dynamic shared memory of the tensor-core kernels, and the threefry
+   kernel's ptxas report and SASS instruction count (``cuobjdump``);
 3. each kernel entry against its plain PyTorch version on the card, at the
    shapes the main path gives it, with errors and warm times, the least
    time the card could take (``bound_ms``: the larger of the bytes over
@@ -22,7 +23,13 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    (B, H, N, D); timing yardsticks the port never calls): attention_qkv,
    attention_flash (the separate-q/k/v entry into the same kernel; K and V
    kept whole and streamed), conv3x3 at every distinct conv shape of the
-   DEPTH_PRO forward in bf16 and in f32, and linker_scan (bit-exact); and
+   DEPTH_PRO forward in bf16 and in f32, linker_scan (bit-exact), and the
+   threefry noise kernel (``ops/prng.py``: ``jax.random.randint`` of the
+   JAX package's stereogram, bit-exact against its plain version at the
+   compact, resolved and full-width 12 MP noise planes and a ragged 7x13x3
+   one, seeds 0, -1 and 2**31 + 3; its time by CUDA events and by the
+   profiler, its bound by integer operations, and the host draw plus
+   upload that it replaced); and
    the shapes of a batch of four photos (attention at B = 140 bf16 and the
    FOV's B = 4 f32, conv3x3 at N = 4; under --dtype f32 attention at B =
    140 and the N = 4 hot conv), with one conv past 2^31 elements; and the
@@ -45,8 +52,9 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
 7. the stereogram path on the phase-4 photo and weights, each run twice:
    the compact PNG (amplitude 1/16, no linker_scan launch), the
    device-resolved PNG (amplitude 0.1, shifts over 255: one launch) and a
-   JPEG (one launch); both PNGs decode to 4032x3024 and equal the
-   device-resolved render of the same DepthMap and seed;
+   JPEG (one launch), each drawing its noise with one threefry launch;
+   both PNGs decode to 4032x3024 and equal the device-resolved render of
+   the same DepthMap and seed;
 8. the mesh path on the phase-4 photo (written to disk as a PNG, which the
    vertex colours and the texture refer to) and weights, each run twice: a
    plain PLY, an OBJ with vertex colours and an OBJ with texture
@@ -125,7 +133,10 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    within its policy's gate, the difference printed), 72 attention and 24
    conv3x3 launches per replayed forward; the resolved stereogram PNG
    written eagerly and three times through the cache, byte for byte the
-   same, one linker_scan launch each; graphs against eager in turns: the
+   same, one linker_scan and one threefry launch each; then seed 8 through
+   the same graph (a replay, no new graph), byte for byte the eager seed-8
+   call and unlike seed 7, and the same for the compact PNG's
+   ``stereogram_noise`` graph; graphs against eager in turns: the
    forward's wall (CUDA events), host time and device time (torch.profiler)
    per call under bf16, mixed, int8 and f32 at one photo and bf16 at four,
    with each forward's model TFLOP and MFU (``flops.mfu`` against the
@@ -171,7 +182,7 @@ points at 2x2, phase 17's replayed forward and replayed stereogram, and
 phase 18's replayed forward of rank 0 on each NCCL mesh),
 and ``launches`` the count on the path that runs
 the kernel: the depth-map PNG for attention_qkv and conv3x3, the resolved
-PNG for linker_scan. No path runs attention_flash (the ViT calls the fused entry):
+PNG for linker_scan and threefry. No path runs attention_flash (the ViT calls the fused entry):
 its ``launches`` is the depth-map run's count, 0.
 
 The last lines are the kernels' summary (JSON), the card's name and power
@@ -218,6 +229,7 @@ PNG_MEAN_COUNTS = 1.0
 # the same per-op rounding differences, carried through every stage.
 E2E_RTOL, E2E_ATOL = 1e-3, 1e-4
 # linker_scan copies pixels: bit-exact against its plain version.
+# threefry hashes integers: bit-exact against its plain version.
 
 STEREO_SEED = 7
 
@@ -227,7 +239,16 @@ STEREO_SEED = 7
 # (``flops._PEAKS``), the number MFU is measured against
 H100_SXM = "NVIDIA H100 80GB HBM3"
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"tf32": 495e12, "f32": 67e12}  # tensor cores; f32 CUDA cores
+PEAK_FLOPS_S = {"tf32": 495e12, "f32": 67e12,  # tensor cores; f32 CUDA cores
+                # 32-bit integer operations: an SM's four schedulers dispatch at
+                # most 128 lane operations a clock, the f32 rate without the
+                # FMA's second operation (integer adds and shifts run on the
+                # FMA pipe too, not on the 64 INT32 lanes alone)
+                "int32": 67e12 / 2}
+# the integer operations one noise element needs: a threefry2x32 (2 key
+# adds, 20 rounds of add, rotate and xor, 5 injections of 2 adds) and the
+# xor of its two words; the split of the key is once a call
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2 + 1
 
 ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (35, 577, 16, 64, "bf16", None),   # patch ViT, the hot shape
@@ -284,6 +305,13 @@ LINKER_SHAPES = [  # (H, W, amplitude): pw and win follow from the geometry
     (3, 30000, 0.45),       # pw 27000: a 128 KB ring in shared memory
     (2, 64000, 0.45),       # pw 57600: the ring past shared memory, in device memory
 ]
+THREEFRY_SHAPES = [  # the noise planes of a 4032x3024 photo's stereograms
+    (3024, 807, 3),    # resolved PNG, amplitude 0.1: pw 807 (the summary's row)
+    (3024, 504, 3),    # compact PNG and JPEG, amplitude 1/16: pw 504
+    (3024, 4032, 3),   # full width (pw == 0 or the wide case)
+    (7, 13, 3),        # 273 bytes: a ragged tail past 16-byte stores
+]
+THREEFRY_SEEDS = (0, -1, 2**31 + 3)
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
 # residual-unit convs, the head's 2) in bf16, in f32 (--dtype f32 and the
@@ -329,10 +357,11 @@ def kernel_wrappers() -> dict:
     """The kernels' wrappers by name; each counts its own launches."""
     from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+    from matrix_eyes_tpu_torch.ops.prng import randint_u8
     from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
 
     return {"attention_qkv": attention_qkv, "conv3x3": conv3x3, "linker_scan": linker_scan,
-            "attention_flash": attention_flash}
+            "attention_flash": attention_flash, "threefry": randint_u8}
 
 
 def counted_run(fn):
@@ -431,7 +460,7 @@ def phase_environment() -> str:
 
 _NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel", "conv3x3_split_weights",
                 "conv3x3_splitk_reduce", "attention_wgmma_kernel", "attention_tf32_kernel",
-                "split_tf32_kernel", "linker_scan_kernel")
+                "split_tf32_kernel", "linker_scan_kernel", "randint_u8_kernel")
 # template arguments as the mangled names spell them
 _MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|6__half|f"
 
@@ -464,18 +493,18 @@ def _ptxas_lines(report: str) -> list:
     return out
 
 
-def phase_build() -> None:
+def phase_build():
     import ctypes
 
     from matrix_eyes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ["attention_qkv", "conv3x3", "linker_scan"]
+    names = ["attention_qkv", "conv3x3", "linker_scan", "threefry"]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("conv3x3", "attention_qkv", "linker_scan"):
+    for name in ("conv3x3", "attention_qkv", "linker_scan", "threefry"):
         for line in _ptxas_lines(_build.ptxas_report(name)):
             print(f"[2] ptxas {line}")
         require("C7514" not in _build.ptxas_report(name),
@@ -493,6 +522,41 @@ def phase_build() -> None:
           f"<32> {attn.me_attention_smem_bytes(32, 577, 0)} B; linker_scan_kernel at 4032 "
           f"columns pw 504 {scan.me_linker_scan_smem_bytes(4032, 504)} B, 30000 columns pw "
           f"27000 {scan.me_linker_scan_smem_bytes(30000, 27000)} B")
+    sass = sass_instructions(paths[3], "randint_u8_kernel")
+    if sass is None:
+        print("[2] threefry SASS: cuobjdump not found beside nvcc, not counted")
+    else:
+        print(f"[2] threefry randint_u8_kernel SASS: {sum(sass.values())} instructions in the "
+              f"code of a thread's 16 elements, the tail's byte stores included "
+              f"({sum(sass.values()) / 16:.1f} an element, against {THREEFRY_OPS} counted in "
+              f"the bound): {dict(sass.most_common())}")
+    return sass
+
+
+def sass_instructions(lib_path: str, kernel: str):
+    """The SASS opcodes of ``kernel`` in the library (cuobjdump beside
+    nvcc), counted by opcode without NOPs; None without cuobjdump. The
+    threefry kernel's loops are unrolled, so this is one thread's code."""
+    import collections
+    import re
+
+    from matrix_eyes_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    ops, inside = collections.Counter(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m and m.group(1) != "NOP":
+            ops[m.group(1)] += 1
+    require(sum(ops.values()) > 0, f"cuobjdump shows no SASS for {kernel}")
+    return ops
 
 
 def peak_flops_s(dt: str) -> float:
@@ -643,6 +707,15 @@ def phase_kernels(dev) -> dict:
               f"({res['bound_by']}) {'ok (bit-exact)' if res['ok'] else 'FAIL'}")
         if not res["ok"]:
             failures.append(f"linker_scan {H, W, amplitude}")
+    for shape in THREEFRY_SHAPES:
+        for seed in THREEFRY_SEEDS:
+            res = threefry_row(dev, shape, seed, timed=seed == THREEFRY_SEEDS[0])
+            if shape == THREEFRY_SHAPES[0] and seed == THREEFRY_SEEDS[0]:
+                hot["threefry"] = res
+            if seed == THREEFRY_SEEDS[0]:
+                hot.setdefault("threefry_rows", []).append(res)
+            if not res["ok"]:
+                failures.append(f"threefry {shape} seed {seed}")
     conv_rows = {}
     for B, H, W, cin, cout, dt, relu_in, n_skips, has_bias, launches in CONV_SHAPES:
         dtype = dtypes[dt]
@@ -686,6 +759,55 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     require(not failures, f"kernels disagree with their plain versions: {failures}")
     return hot, conv_rows
+
+
+def threefry_row(dev, shape: tuple, seed: int, timed: bool) -> dict:
+    """The noise kernel against its plain version at shape and seed, bit
+    for bit; when ``timed``, its time by CUDA events and by the profiler,
+    the plain version's, and the host draw plus upload that the kernel
+    replaced (a seeded CPU ``torch.randint`` copied to the card)."""
+    import torch
+
+    from matrix_eyes_tpu_torch.ops.prng import key_tensor, randint_u8, randint_u8_plain
+    from matrix_eyes_tpu_torch.parallel.checks import device_ms
+
+    key = key_tensor(seed, dev)
+    got = randint_u8(key, shape)
+    want = randint_u8_plain(key, shape)
+    torch.cuda.synchronize()
+    n = got.numel()
+    # library_ms: no PyTorch call draws these bits
+    res = {"max_abs_err": float((got.int() - want.int()).abs().max().item()),
+           "ok": bool(torch.equal(got, want)), "library_ms": None,
+           "shape": f"{'x'.join(map(str, shape))} u8 seed={seed}"}
+    # one byte written per element, the 16-byte key read once
+    res["bound_ms"], res["bound_by"] = bound_ms(THREEFRY_OPS * n, n + 16, "int32")
+    if timed:
+        reps = 20 if n > 100_000 else 50
+        res["ms"] = time_ms(lambda: randint_u8(key, shape), reps)
+        res["device_ms"] = device_ms(lambda: randint_u8(key, shape), reps)[0]
+        res["plain_ms"] = time_ms(lambda: randint_u8_plain(key, shape), 3 if n > 10**6 else reps)
+
+        def host_draw():
+            gen = torch.Generator("cpu").manual_seed(seed)
+            return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+
+        host_draw()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_draw()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res["host_draw_upload_ms"] = sum(walls) / len(walls) * 1e3
+    times = (f"ms={res['ms']:.4f} device_ms={res['device_ms']:.4f} "
+             f"plain_ms={res['plain_ms']:.4f} host_draw_upload_ms="
+             f"{res['host_draw_upload_ms']:.4f} " if timed else "")
+    print(f"[3] threefry {res['shape']}: max_abs={res['max_abs_err']:g} {times}"
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"{'ok (bit-exact)' if res['ok'] else 'FAIL'}")
+    return res
 
 
 def conv_per_forward(conv_rows: dict, by_shape: dict, dtype, phase: int) -> dict:
@@ -763,9 +885,9 @@ def depth_map_runs(dev, params, src, dtype, phase: int, name: str) -> tuple:
         conv_shapes.append(shapes)
     print(f"[{phase}] extract_depth ({name}) wall s: first {walls[0]:.3f}, second (captures "
           f"its graphs) {walls[1]:.3f}; launches per run: {counts}")
-    # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan on this path
+    # 72 ViT blocks; 18 RCU + 4 projection + 2 head convs; no scan or noise on this path
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
-              "attention_flash": 0}
+              "attention_flash": 0, "threefry": 0}
     require(all(c == expect for c in counts),
             f"launch counts {counts}, expected {expect} per forward")
     require(conv_shapes[0] == conv_shapes[1], f"conv3x3 shapes differ between runs: {conv_shapes}")
@@ -933,7 +1055,7 @@ def phase_stereogram(dev, params, src) -> dict:
               f"second {walls[1]:.3f}; launches per run: {counts}; "
               f"{os.path.getsize(out)} bytes")
         expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": want_scans,
-                  "attention_flash": 0}
+                  "attention_flash": 0, "threefry": 1}  # one noise draw, in either form
         require(all(c == expect for c in counts),
                 f"stereogram {name}: launch counts {counts}, expected {expect} per run")
         img = _decode_rgb(out)
@@ -1013,7 +1135,7 @@ def phase_mesh(dev, params, src, photo: str) -> dict:
     cfg = DEPTH_PRO
     runtime = RuntimeConfig(device=dev)
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
-              "attention_flash": 0}
+              "attention_flash": 0, "threefry": 0}
     colors_counts = None
     for name, fname, mode in (("PLY plain", "mesh_plain.ply", VertexMode.PLAIN),
                               ("OBJ vertex-colors", "mesh_colors.obj", VertexMode.COLOR),
@@ -1138,7 +1260,7 @@ def _batch_runs(dev, params, photos: list) -> dict:
         pipeline.forward_batch = real_batch
     first = time.perf_counter() - t0
     expect = {"attention_qkv": 2 * 3 * cfg.depth, "conv3x3": 48, "linker_scan": 0,
-              "attention_flash": 0}
+              "attention_flash": 0, "threefry": 0}
     print(f"[9] cli --batch-size=4 over {len(photos)} photos: first run {first:.3f} s; "
           f"launches {counts}; conv3x3 batch sizes {sorted({k[0] for k in shapes})}")
     require(counts == expect, f"batch-4 launch counts {counts}, expected {expect}")
@@ -1262,7 +1384,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
           f"conversion included), second {walls[1]:.3f}; launches per run: {counts}; "
           f"attention_qkv by dtype: {by_dtype}")
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
-              "attention_flash": 0}
+              "attention_flash": 0, "threefry": 0}
     want_dtypes = {vit_dtype: 2 * cfg.depth, torch.float32: cfg.depth}
     require(all(c == expect for c in counts), f"--dtype={policy}: launch counts {counts}, "
             f"expected {expect} per run")
@@ -1415,7 +1537,8 @@ def phase_serve(dev, canonical: dict, src, photos: list) -> tuple:
         body = f.read()
     with answered_with(params):
         me = api.MatrixEyes("phase-4 weights")
-    expect = {"attention_qkv": 72, "conv3x3": 24, "linker_scan": 0, "attention_flash": 0}
+    expect = {"attention_qkv": 72, "conv3x3": 24, "linker_scan": 0, "attention_flash": 0,
+              "threefry": 0}
     with serving(me, 1) as url:
         code, ctype, health = _http(url + "/healthz")
         health = json.loads(health)
@@ -1438,7 +1561,9 @@ def phase_serve(dev, canonical: dict, src, photos: list) -> tuple:
                 same = f.read() == got
             print(f"[14] /v1/process?format={fmt}: {code} {ctype}, {len(got)} bytes in "
                   f"{wall:.3f} s; launches {counts}; equals MatrixEyes.process: {same}")
-            require(code == 200 and counts == expect, f"{fmt}: {code}, launches {counts}")
+            # the compact stereogram draws its noise on the card: one threefry launch
+            want = dict(expect, threefry=int(fmt == "stereogram"))
+            require(code == 200 and counts == want, f"{fmt}: {code}, launches {counts}")
             require(same, f"the served {fmt} differs from MatrixEyes.process of the same file")
             if fmt == "depthmap":
                 serve_counts = counts
@@ -1828,6 +1953,7 @@ def _entry_points_2x2(dev, cfg, weights: str, photos: list, ref_inv) -> dict:
             require(res["ok"] and same, f"{name}: the session's inverse depth")
     for c in counts.values():
         c.setdefault("linker_scan", 0)
+        c.setdefault("threefry", 0)
     return counts, modes
 
 
@@ -1989,6 +2115,7 @@ def phase_multi_device(dev, src, ref_inv, photos: list, weights: str) -> tuple:
     counts.update(entry_counts)
     for c in counts.values():
         c.setdefault("linker_scan", 0)
+        c.setdefault("threefry", 0)
     return counts, modes
 
 
@@ -2068,7 +2195,7 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
     cache = aot.cache()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
     forward_counts = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
-                      "attention_flash": 0}
+                      "attention_flash": 0, "threefry": 0}
     t_phase = time.perf_counter()
 
     def preprocess():
@@ -2108,24 +2235,53 @@ def phase_graphs(dev, canonical: dict, src, photos: list) -> dict:
         require(results[name]["bit_equal"], f"{name}: the replay's pixels differ")
         print(f"[17] {name}: replay bit-equal to eager: True; walls s "
               f"{[round(w, 4) for w in walls]}")
-    # the resolved stereogram through the user's entry: a PNG's bytes
-    pngs = []
-    for i in range(4):
-        out = os.path.join(OUT_DIR, f"graphs_stereo_{i}.png")
+    # the stereograms through the user's entry: a PNG's bytes, eagerly and
+    # three times through the cache at seed 7, then seed 8 through the same
+    # graph (the key is the graph's input, not a launch argument)
+    def stereo_png(name: str, amplitude: float, seed: int, eager: bool = False) -> tuple:
+        out = os.path.join(OUT_DIR, name)
         with contextlib.ExitStack() as stack:
-            if i == 0:
+            if eager:
                 stack.enter_context(aot.disabled())
             _, counts, _ = counted_run(lambda: depth.output_image(
-                out, "synthetic", image_format=ImageOutputFormat.STEREOGRAM, amplitude=0.1,
-                seed=STEREO_SEED))
+                out, "synthetic", image_format=ImageOutputFormat.STEREOGRAM,
+                amplitude=amplitude, seed=seed))
         with open(out, "rb") as f:
-            pngs.append(f.read())
-        require(counts["linker_scan"] == 1, f"stereogram call {i}: {counts}")
-        stereo_counts = counts
-    require("stereogram" in cache.live(), "the resolved stereogram has no graph")
-    require(all(p == pngs[0] for p in pngs), "a replayed stereogram PNG differs from eager")
-    print(f"[17] stereogram (resolved PNG, amplitude 0.1): eager and three graph calls write "
-          f"the same {len(pngs[0])} bytes; linker_scan 1 launch per call")
+            return f.read(), counts
+
+    for form, amplitude, program, scans in (("resolved", 0.1, "stereogram", 1),
+                                            ("compact", 1 / 16, "stereogram_noise", 0)):
+        pngs, calls = [], []
+        for i in range(4):
+            data, counts = stereo_png(f"graphs_{form}_{i}.png", amplitude, STEREO_SEED, i == 0)
+            pngs.append(data)
+            calls.append(counts)
+        live = [k for k, e in cache._live.items() if e.name == program]
+        require(live, f"the {form} stereogram's {program} has no graph")
+        require(all(p == pngs[0] for p in pngs), f"a replayed {form} stereogram PNG differs "
+                f"from eager")
+        seed8, counts8 = stereo_png(f"graphs_{form}_seed8.png", amplitude, STEREO_SEED + 1)
+        mode8 = [m for n, m in cache.modes if n == program][-1]
+        eager8, _ = stereo_png(f"graphs_{form}_seed8_eager.png", amplitude, STEREO_SEED + 1,
+                               eager=True)
+        calls.append(counts8)
+        require(all(c["linker_scan"] == scans and c["threefry"] == 1 for c in calls),
+                f"{form} stereogram calls launched {calls}")
+        require(mode8 == "replay" and [k for k, e in cache._live.items()
+                                       if e.name == program] == live,
+                f"the {form} stereogram at seed {STEREO_SEED + 1} ran {program} as {mode8}, "
+                f"not as a replay of the seed-{STEREO_SEED} graph")
+        require(seed8 == eager8, f"the replayed {form} stereogram at seed {STEREO_SEED + 1} "
+                f"differs from its eager call")
+        require(seed8 != pngs[0], f"the {form} stereogram at seed {STEREO_SEED + 1} repeats "
+                f"seed {STEREO_SEED}")
+        print(f"[17] stereogram ({form} PNG, amplitude {amplitude:g}): eager and three graph "
+              f"calls at seed {STEREO_SEED} write the same {len(pngs[0])} bytes; seed "
+              f"{STEREO_SEED + 1} replays the one live {program} graph ({len(live)} live of "
+              f"that name) and writes its eager call's {len(seed8)} bytes, not seed "
+              f"{STEREO_SEED}'s; linker_scan {scans} and threefry 1 launch per call")
+        if form == "resolved":
+            stereo_counts = calls[3]
 
     # fwd_fov under the other policies
     trees = {"bf16": params, "f32": canonical}
@@ -2390,6 +2546,7 @@ def phase_mesh_graphs(dev, src, ref_inv, weights: str, gloo_modes: dict) -> dict
               "scripts/torch_mesh_check.py --graphs")
     for c_ in counts.values():
         c_.setdefault("linker_scan", 0)
+        c_.setdefault("threefry", 0)
     print(f"[18] phase 18: {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -2411,7 +2568,7 @@ def main() -> int:
     configure_precision()
     dev = torch.device("cuda", 0)
     smi = phase_environment()
-    phase_build()
+    sass = phase_build()
     hot, conv_rows = phase_kernels(dev)
     by_path = {}
     by_path["depthmap_png"], conv_shapes, inv_bf16, params, src = phase_main_path(dev)
@@ -2459,7 +2616,10 @@ def main() -> int:
             ("linker_scan", "matrix_eyes_tpu_torch/csrc/linker_scan.cu",
              "matrix_eyes_tpu/ops/stereogram_kernel.py:58", "resolved_png"),
             ("attention_flash", "matrix_eyes_tpu_torch/csrc/attention_qkv.cu",
-             "matrix_eyes_tpu/ops/flash_attention.py:159", "depthmap_png")):
+             "matrix_eyes_tpu/ops/flash_attention.py:159", "depthmap_png"),
+            # not a TPU kernel: XLA draws the JAX package's noise
+            ("threefry", "matrix_eyes_tpu_torch/csrc/threefry.cu",
+             "matrix_eyes_tpu/ops/stereogram.py:95", "resolved_png")):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": by_path[path][name], "launches_path": path,
                         "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -2476,6 +2636,16 @@ def main() -> int:
                 "bound_cuda_core_ms")}
         row_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")
+        if name == "threefry":
+            kernels[-1]["tpu_kernel"] = False
+            kernels[-1]["device_ms"] = hot[name]["device_ms"]
+            kernels[-1]["host_draw_upload_ms"] = hot[name]["host_draw_upload_ms"]
+            kernels[-1]["sass_instructions_per_thread"] = (
+                None if sass is None else sum(sass.values()))
+            kernels[-1]["rows"] = [{k: row[k] for k in (
+                "shape", "max_abs_err", "ms", "device_ms", "plain_ms", "host_draw_upload_ms",
+                "bound_ms", "bound_by")} for row in hot["threefry_rows"]]
+            continue
         if name != "linker_scan":  # the f16 build at the hot shape (--dtype f16)
             f16 = hot[f"{name}_f16"]
             kernels[-1]["f16"] = {k: f16[k] for k in row_keys}

@@ -22,7 +22,9 @@ Layer map:
   primitives     -> ops/ (nn, resize, colormap, attention)
   kernels        -> ops/flash_attention.py + csrc/attention_qkv.cu,
                     ops/conv3x3.py + csrc/conv3x3.cu,
-                    ops/stereogram_kernel.py + csrc/linker_scan.cu
+                    ops/stereogram_kernel.py + csrc/linker_scan.cu,
+                    ops/prng.py + csrc/threefry.cu (the stereogram's
+                    noise: the JAX package's threefry bits)
                     (csrc/hopper.cuh: TMA, mbarrier and wgmma helpers)
   output         -> output/depthmap.py (depth-map, stereogram and mesh
                     render, host copies), output/png.py, output/mesh.py

@@ -128,6 +128,7 @@ class _LaunchCounters:
     def _fields() -> List[Tuple[Any, str]]:
         from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
         from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+        from matrix_eyes_tpu_torch.ops.prng import randint_u8
         from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
         from matrix_eyes_tpu_torch.parallel import collectives
 
@@ -136,7 +137,7 @@ class _LaunchCounters:
                 (attention_flash, "launches"), (conv3x3, "launches"),
                 (conv3x3, "launches_by_shape"), (linker_scan, "launches"),
                 (collectives, "counts"), (collectives, "result_bytes"),
-                (collectives, "gather_shapes")]
+                (collectives, "gather_shapes"), (randint_u8, "launches")]
 
     @classmethod
     def snapshot(cls) -> list:
@@ -606,7 +607,7 @@ _prefetch: Optional[Future] = None
 
 def prefetch_async(device) -> Optional[Future]:
     """Start the first call's one-time work on a background thread: the
-    CUDA context on ``device``, the three kernel libraries (built if
+    CUDA context on ``device``, the four kernel libraries (built if
     missing, loaded) and their kernels (loaded, their shared-memory limits
     set). The CLI calls this before the checkpoint load, as the JAX CLI
     starts deserializing its executables before the weight upload. A
@@ -649,11 +650,11 @@ def join_prefetch() -> None:
 
 
 def _warm_up(device: torch.device) -> None:
-    from matrix_eyes_tpu_torch.ops import conv3x3, flash_attention, stereogram_kernel
+    from matrix_eyes_tpu_torch.ops import conv3x3, flash_attention, prng, stereogram_kernel
 
     with torch.cuda.device(device):
         torch.cuda.init()
-        for module in (flash_attention, conv3x3, stereogram_kernel):
+        for module in (flash_attention, conv3x3, stereogram_kernel, prng):
             module.prepare()
 
 

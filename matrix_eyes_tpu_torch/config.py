@@ -145,8 +145,9 @@ class RuntimeConfig:
     """dtype: parameter/compute dtype (accumulation is always f32); None
     picks bf16 on CUDA and f32 on the CPU. device: None means the CUDA card
     (and raises ``NoCudaDevice`` without one); the CPU runs only when asked
-    for ("cpu"). seed: stereogram noise seed (a CPU ``torch.Generator``, so
-    a seed gives the same image on every device; not the JAX package's bits).
+    for ("cpu"). seed: stereogram noise seed (the JAX package's threefry
+    bits, ``ops/prng.py``, so a seed gives the same image on every device
+    and under either package).
     quantize_int8: ``--dtype int8``, int8 ViT block matmul weights
     (``ops/quant.py``); needs the bf16 compute dtype. mixed_bf16:
     ``--dtype mixed``, bf16 ViT block matmul weights and everything else

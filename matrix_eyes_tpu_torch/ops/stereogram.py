@@ -7,8 +7,8 @@ scan carrying a loop dependency in x::
 
 Two forms, as in the JAX package:
 
-* compact (``synthesize_stereogram_split``): the u8 shift plane (on the
-  device, for the caller to read back) and the (H, pw, 3) noise; the
+* compact (``synthesize_stereogram_split``): the u8 shift plane and the
+  (H, pw, 3) noise, both on the device for the caller to read back; the
   native PNG encoder replays the scan on the host;
 * device-resolved (``synthesize_stereogram``), routed as the JAX
   package's ``_synthesize``: ``pw == 0`` gives full-size noise; the
@@ -18,16 +18,21 @@ Two forms, as in the JAX package:
   and are not ported.
 
 The device work runs through the CUDA-graph cache (``aot.call_cached``)
-under the JAX package's names: ``stereogram`` (shift plane and scan) and
-``stereogram_shift`` (the compact form's shift plane). The noise is drawn
-outside them and copied into the graph's input.
+under the JAX package's names and argument lists: ``stereogram`` (noise,
+shift plane and scan, from ``(depth, key)``), and for the compact form
+``stereogram_noise`` (from ``key``) and ``stereogram_shift`` (from
+``depth``), each read back by the caller.
 
-Noise policy: noise is drawn on the host from
-``torch.Generator("cpu").manual_seed(seed)``, (H, pw, 3) u8 or (H, W, 3)
-in the ``wide`` and ``pw == 0`` cases, and uploaded only for the
-device-resolved form. A seed gives the same image on the CPU and on the
-card, and in both PNG forms; it does not give the JAX package's threefry
-bits (nor does the reference's thread RNG repeat itself).
+Noise policy: the JAX package's, bit for bit. The noise is
+``jax.random.randint(jax.random.PRNGKey(seed), shape, 0, 256, uint8)``,
+(H, pw, 3) or (H, W, 3) in the ``wide`` and ``pw == 0`` cases, drawn on
+the device inside the program by ``ops/prng.py`` (the ``threefry`` kernel
+on the card, its plain version on the CPU). The seed reaches the program
+as data, the (2,) key tensor, so a graph replays any seed and one graph
+serves them all. A seed gives the JAX package's image on the CPU and on
+the card, in both PNG forms, wherever the two packages' f32 resampling
+gives the same shift plane (the reference's thread RNG does not repeat
+itself).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from matrix_eyes_tpu_torch import aot
+from matrix_eyes_tpu_torch.ops.prng import key_tensor, randint_u8
 from matrix_eyes_tpu_torch.ops.resize import depthmap_bilinear_resample
 from matrix_eyes_tpu_torch.ops.stereogram_kernel import (
     doubling_iterations,
@@ -78,10 +84,10 @@ def _split_geometry(out_w: int, amplitude: float):
     return dm, pw
 
 
-def stereogram_noise(seed: int, out_h: int, width: int) -> torch.Tensor:
-    """(out_h, width, 3) u8 noise on the host from a seeded CPU generator."""
-    gen = torch.Generator("cpu").manual_seed(seed)
-    return torch.randint(0, 256, (out_h, width, 3), generator=gen, dtype=torch.uint8)
+def stereogram_noise(seed: int, out_h: int, width: int, device) -> torch.Tensor:
+    """(out_h, width, 3) u8 noise on ``device``: the JAX package's
+    ``jax.random.randint(PRNGKey(seed), (out_h, width, 3), 0, 256, uint8)``."""
+    return randint_u8(key_tensor(seed, device), (out_h, width, 3))
 
 
 def _norm_depth(depth: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -108,9 +114,17 @@ def synthesize_stereogram(depth: torch.Tensor, out_h: int, out_w: int, amplitude
     """depth: (H, W) clamped inverse-depth grid; returns (out_h, out_w, 3)
     u8 on the depth's device."""
     dm, pw = stereogram_geometry(out_w, amplitude)
+    key = key_tensor(seed, depth.device)
+    return aot.call_cached("stereogram", _synthesize, (depth, key, out_h, out_w, dm, pw))
+
+
+def _synthesize(depth: torch.Tensor, key: torch.Tensor, out_h: int, out_w: int, dm: float,
+                pw: int) -> torch.Tensor:
+    """The device-resolved stereogram's program: the noise, the shift plane
+    and the scan."""
     if pw == 0:
         # degenerate amplitude: every pixel keeps its own noise value
-        return stereogram_noise(seed, out_h, out_w).to(depth.device)
+        return randint_u8(key, (out_h, out_w, 3))
     win = _max_shift(dm) + 1
     # sub-pixel amplitudes (max_shift == pw) let a pixel link to itself; it
     # then keeps its own noise value, so the noise is full width and the
@@ -118,29 +132,24 @@ def synthesize_stereogram(depth: torch.Tensor, out_h: int, out_w: int, amplitude
     # package does. Only dm < 1 (shifts of at most one pixel, pw == 1) gets
     # here: for dm >= 1, round(2 dm + amplitude) >= round(dm) + 1.
     wide = win > pw
-    noise = stereogram_noise(seed, out_h, out_w if wide else pw).to(depth.device)
-    return aot.call_cached("stereogram", _resolve, (depth, noise, out_h, out_w, dm, pw, win))
-
-
-def _resolve(depth: torch.Tensor, noise: torch.Tensor, out_h: int, out_w: int, dm: float,
-             pw: int, win: int) -> torch.Tensor:
-    """The shift plane and the scan of the device-resolved stereogram."""
+    noise = randint_u8(key, (out_h, out_w if wide else pw, 3))
     shift = shift_plane(depth, out_h, out_w, dm, torch.int32)
-    if win > pw:
+    if wide:
         return linker_scan_plain(shift, noise, pw, win)
     return linker_scan(shift, noise, pw, win)
 
 
 def synthesize_stereogram_split(depth: torch.Tensor, out_h: int, out_w: int, amplitude: float,
                                 seed: int = 0):
-    """The compact form: (pw, shift (out_h, out_w) u8 on the depth's device,
-    noise (out_h, pw, 3) u8 numpy on the host), the caller reading the shift
-    plane back in one transfer; or None when the compact form does not
-    apply."""
+    """The compact form: (pw, shift (out_h, out_w) u8, noise (out_h, pw, 3)
+    u8), both on the depth's device for the caller to read back; or None
+    when the compact form does not apply."""
     geo = _split_geometry(out_w, amplitude)
     if geo is None:
         return None
     dm, pw = geo
+    noise = aot.call_cached("stereogram_noise", randint_u8,
+                            (key_tensor(seed, depth.device), (out_h, pw, 3)))
     shift = aot.call_cached("stereogram_shift", shift_plane,
                             (depth, out_h, out_w, dm, torch.uint8))
-    return pw, shift, stereogram_noise(seed, out_h, pw).numpy()
+    return pw, shift, noise

@@ -17,9 +17,10 @@ forward and chunk k's writers do not wait out that forward. Save policy:
   device and encoded at full size; other formats go through PIL;
 * stereogram: a PNG takes the compact (shift, noise) form when the native
   encoder is present and the geometry allows it (shifts up to 255, not
-  ``wide``); otherwise the image is resolved on the device (the linker-scan
-  kernel on the card) and encoded under the STEREOGRAM profile, or written
-  by PIL for other formats;
+  ``wide``): both planes are made on the device and read back; otherwise
+  the image is resolved on the device (the linker-scan kernel on the card)
+  and encoded under the STEREOGRAM profile, or written by PIL for other
+  formats;
 * mesh (``.obj``/``.ply``): the clamped grid is read back and triangulated
   on the host (``output/mesh.py``, ``output/writers.py``); vertex colours
   come from the source file Lanczos3-resized to the grid on the device.
@@ -193,8 +194,8 @@ class DepthMap:
                 split = synthesize_stereogram_split(self.data, oh, ow, amplitude, seed)
             if split is not None:
                 pw, shift, noise = split
-                shift = readback(shift)
-                return lambda: png.save_stereogram_split(shift(), noise, destination_path, pw)
+                noise, shift = readback(noise), readback(shift)
+                return lambda: png.save_stereogram_split(shift(), noise(), destination_path, pw)
         with timings.span("output: render dispatch"):
             rgb = readback(self.render_stereogram(resize_scale, amplitude, seed))
         if dest.endswith(".png"):

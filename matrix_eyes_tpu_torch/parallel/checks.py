@@ -34,6 +34,7 @@ import torch
 def _kernel_counts() -> Dict[str, Any]:
     from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+    from matrix_eyes_tpu_torch.ops.prng import randint_u8
     from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
 
     conv_by_batch = collections.Counter()
@@ -41,6 +42,7 @@ def _kernel_counts() -> Dict[str, Any]:
         conv_by_batch[shape[0]] += n
     return {"attention_qkv": attention_qkv.launches, "conv3x3": conv3x3.launches,
             "linker_scan": linker_scan.launches, "attention_flash": attention_flash.launches,
+            "threefry": randint_u8.launches,
             "attention_by_shape": {str(k): v for k, v in attention_qkv.launches_by_shape.items()},
             "conv3x3_by_batch": dict(conv_by_batch)}
 
@@ -48,10 +50,11 @@ def _kernel_counts() -> Dict[str, Any]:
 def _reset_kernel_counts() -> None:
     from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+    from matrix_eyes_tpu_torch.ops.prng import randint_u8
     from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
 
     attention_qkv.launches = conv3x3.launches = linker_scan.launches = 0
-    attention_flash.launches = 0
+    attention_flash.launches = randint_u8.launches = 0
     for counter in (attention_qkv.launches_by_dtype, attention_qkv.launches_by_batch,
                     attention_qkv.launches_by_shape, conv3x3.launches_by_shape):
         counter.clear()

@@ -4,7 +4,7 @@ depth-map PNG of ``pipeline.extract_depth``, several source trees compared
 in one call, and (``--batch``) the directory of ``chip_smoke.py`` phase 9
 at --batch-size=4 against 1 with a breakdown by stage.
 
-    python3 scripts/torch_e2e_walls.py [--reps N] [--batch] TREE [TREE ...]
+    python3 scripts/torch_e2e_walls.py [--reps N] [--batch] [--stereogram] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repository (``.`` for this one,
 another unpacked with ``git archive``); the trees run in the order given,
@@ -25,6 +25,11 @@ warm-up each, with photos per second; and one more run of each with
 ``MATRIX_EYES_TIMINGS=1``, whose stage table is printed (its forward span
 waits for the card, so its walls are not the pipelined ones). The CLI's
 checkpoint reader is answered with the random weights.
+
+``--stereogram``: after the depth-map walls, ``--reps`` walls each of
+``extract_depth`` to the two stereogram PNGs of ``chip_smoke.py`` phase 7
+at seed 7, the compact form (amplitude 1/16) and the device-resolved one
+(amplitude 0.1, shifts over 255), two untimed calls of each first.
 
 Prints one JSON line per run and the card's name and power limit.
 """
@@ -139,7 +144,34 @@ def _batch(params, src, out_dir: str) -> dict:
     return res
 
 
-def child(tree: str, reps: int, batch: bool) -> dict:
+def _stereogram(params, src, out_dir: str, reps: int) -> dict:
+    import torch
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig
+    from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
+
+    runtime = RuntimeConfig(device=torch.device("cuda", 0), seed=7)
+    res = {}
+    for form, amplitude in (("compact", 1 / 16), ("resolved", 0.1)):
+        out = os.path.join(out_dir, f"stereogram_{form}.png")
+
+        def once() -> float:
+            t0 = time.perf_counter()
+            pipeline.extract_depth(DEPTH_PRO, params, "synthetic-3024x4032", out,
+                                   image_format=ImageOutputFormat.STEREOGRAM,
+                                   stereo_amplitude=amplitude, runtime=runtime, source=src)
+            return time.perf_counter() - t0
+
+        first = [once() for _ in range(2)]
+        walls = [once() for _ in range(reps)]
+        res[f"stereogram_{form}"] = {"first_s": first, "walls_s": walls,
+                                     "median_s": sorted(walls)[len(walls) // 2],
+                                     "min_s": min(walls)}
+    return res
+
+
+def child(tree: str, reps: int, batch: bool, stereogram: bool) -> dict:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     import torch
@@ -169,6 +201,8 @@ def child(tree: str, reps: int, batch: bool) -> dict:
     walls = [once() for _ in range(reps)]
     res = {"tree": tree, "first_s": first, "depthmap_png_walls_s": walls,
            "median_s": sorted(walls)[len(walls) // 2], "min_s": min(walls)}
+    if stereogram:
+        res.update(_stereogram(params, src, out_dir, reps))
     if batch:
         res.update(_batch(params, src, out_dir))
     return res
@@ -179,15 +213,17 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--batch", action="store_true")
+    ap.add_argument("--stereogram", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.trees[0], args.reps, args.batch)))
+        print(json.dumps(child(args.trees[0], args.reps, args.batch, args.stereogram)))
         return 0
     for tree in args.trees:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", "--reps", str(args.reps),
                tree] + (["--batch"] if args.batch and os.path.exists(
-                   os.path.join(tree, "matrix_eyes_tpu_torch", "api.py")) else [])
+                   os.path.join(tree, "matrix_eyes_tpu_torch", "api.py")) else []) + (
+                   ["--stereogram"] if args.stereogram else [])
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
         if proc.returncode != 0:
             print(f"{tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}", file=sys.stderr)

@@ -216,7 +216,7 @@ def test_port_imports_no_jax():
             "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed',\n"
             "             'serve', 'pt.loader', 'debug', 'parallel.sharding',\n"
             "             'parallel.collectives', 'parallel.launch', 'parallel.checks',\n"
-            "             'aot', 'flops'):\n"
+            "             'aot', 'flops', 'ops.prng'):\n"
             "    assert 'matrix_eyes_tpu_torch.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'matrix_eyes_tpu' or m.startswith('matrix_eyes_tpu.')]\n"

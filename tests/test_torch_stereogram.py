@@ -1,11 +1,14 @@
 """The PyTorch port's stereogram output against the JAX package.
 
 Geometry, the normalised depth, the shift plane, the linker scan and the PNG
-bytes go through both packages on the same inputs (numpy seeds). The two
-packages draw their noise from different generators, so the scan and the
-PNG bytes are held given the same noise plane. On the CPU the
-``linker_scan`` wrapper runs its plain version (pointer doubling); the CUDA
-kernel itself is checked on the card by chip_smoke.py.
+bytes go through both packages on the same inputs (numpy seeds). Both
+packages draw the noise of a seed as ``jax.random.randint(PRNGKey(seed), ...,
+0, 256, uint8)`` (the port through ``ops/prng.py``, held to JAX bit for bit
+in test_torch_prng.py), so the stereogram and its PNG files are held to the
+JAX package's given the same depth grid and seed; the scan and the PNG
+encoders are also held given the same injected noise plane. On the CPU the
+``linker_scan`` and ``randint_u8`` wrappers run their plain versions; the
+CUDA kernels themselves are checked on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 import torch
 from PIL import Image
 
+import jax
 import jax.numpy as jnp
 
 from matrix_eyes_tpu import cli as jcli
@@ -134,8 +138,61 @@ def test_wide_and_degenerate_match_reference(H, W, amplitude):
     depth = torch.from_numpy(_grid((8, 6), H + W))
     got = tst.synthesize_stereogram(depth, H, W, amplitude, seed=4).numpy()
     dnorm = tst._norm_depth(depth, H, W).numpy()
-    noise = tst.stereogram_noise(4, H, W).numpy()
+    noise = tst.stereogram_noise(4, H, W, "cpu").numpy()
     np.testing.assert_array_equal(got, jst.reference_rows(dnorm, noise, pw, dm))
+
+
+# --- the whole stereogram against the JAX package, seed for seed ---------------
+
+# the two packages' f32 bilinear matmuls may round a sample one ulp apart, and
+# a shift whose dnorm * dm + 0.5 lies within that ulp of an integer then
+# differs by one (test_norm_depth_and_shift_plane_match_jax: one pixel in
+# ~1e6; 720x960 at amplitude 0.1 from a 32x32 grid has one). On these grids
+# the shift planes agree, which the test checks first, so that such a pixel
+# is reported as the shift plane's and not as the noise's.
+@pytest.mark.parametrize("amplitude", [0.0, 0.5 / 16, 1 / 16, 0.1])
+@pytest.mark.parametrize("grid,out", [((32, 48), (64, 96)), ((48, 64), (97, 131)),
+                                      ((24, 40), (300, 500))])
+def test_synthesize_stereogram_matches_jax(grid, out, amplitude):
+    # exact: the same noise, shift plane and scan
+    depth = _grid(grid, out[1])
+    oh, ow = out
+    dm, pw = tst.stereogram_geometry(ow, amplitude)
+    if pw:
+        jshift = np.floor(np.asarray(jst._norm_depth(jnp.asarray(depth), oh, ow))
+                          * np.float32(dm) + np.float32(0.5)).astype(np.int32)
+        np.testing.assert_array_equal(
+            tst.shift_plane(torch.from_numpy(depth), oh, ow, dm, torch.int32).numpy(), jshift)
+    for seed in (0, 7, 2**31 + 3):
+        want = np.asarray(jst.synthesize_stereogram(jnp.asarray(depth), oh, ow, amplitude,
+                                                    seed=seed))
+        got = tst.synthesize_stereogram(torch.from_numpy(depth), oh, ow, amplitude, seed=seed)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("size,amplitude", [((96, 64), 1 / 16),   # compact
+                                            ((600, 40), 0.45)])   # resolved: shifts over 255
+def test_png_files_match_jax(tmp_path, size, amplitude):
+    # exact bytes: the same pixels through the same encoder and profile
+    grid = _grid((16, 24), 1)
+    assert (tst._split_geometry(size[0], amplitude) is None) == (amplitude == 0.45)
+    t, j = str(tmp_path / "t.png"), str(tmp_path / "j.png")
+    DepthMap.new(torch.from_numpy(grid), size).output_image(t, "", STEREO, amplitude=amplitude,
+                                                            seed=11)
+    jdepthmap.DepthMap.new(jnp.asarray(grid), size).output_image(
+        j, "", jdepthmap.ImageOutputFormat.STEREOGRAM, amplitude=amplitude, seed=11)
+    assert open(t, "rb").read() == open(j, "rb").read()
+
+
+def test_split_noise_is_the_resolved_forms_noise():
+    # the compact form's noise plane is the device-resolved form's
+    depth = torch.from_numpy(_grid((8, 12), 3))
+    pw, _shift, noise = tst.synthesize_stereogram_split(depth, 20, 64, 1 / 16, seed=5)
+    np.testing.assert_array_equal(noise.numpy(), tst.stereogram_noise(5, 20, pw, "cpu").numpy())
+    np.testing.assert_array_equal(
+        noise.numpy(), np.asarray(jax.random.randint(jax.random.PRNGKey(5), (20, pw, 3), 0, 256,
+                                                     jnp.uint8)))
 
 
 @pytest.mark.parametrize("bad", [
@@ -167,7 +224,7 @@ def test_split_png_bytes_match_jax_and_device_resolved(tmp_path, oh, ow, amplitu
     # exact bytes: the same encoder, stripes and profile on the same pixels
     depth = torch.from_numpy(_grid((32, 48), ow))
     pw, shift, noise = tst.synthesize_stereogram_split(depth, oh, ow, amplitude, seed=3)
-    shift = shift.numpy()
+    shift, noise = shift.numpy(), noise.numpy()
     assert shift.shape == (oh, ow) and noise.shape == (oh, pw, 3)
     t, j, r = (str(tmp_path / f"{n}.png") for n in ("t", "j", "r"))
     tpng.save_stereogram_split(shift, noise, t, pw)
