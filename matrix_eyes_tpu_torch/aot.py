@@ -62,6 +62,14 @@ eager path behind it. A graph cannot be serialized, so the JAX package's
 on-disk cache (``MATRIX_EYES_AOT_CACHE``) has no counterpart: the port's
 persistent artefacts are ``_build/`` and the weight caches.
 
+Every call records a span of the program's trace (``timings.trace``) while
+spans are recorded: ``dispatch.eager``, ``dispatch.capture`` or
+``dispatch.replay``, from just after the call's mode is known to its end,
+with the program's name as its ``program`` attribute. Their count by mode
+is the replay counter over any window (``modes`` keeps the latest 256
+calls), and a replay's span is the host's issue time: the input copies
+enqueued, the graph launched, the output clones enqueued.
+
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counters' increments during a capture are recorded and added
 again at every replay (``_LaunchCounters``), so a forward counts 72
@@ -103,8 +111,12 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tupl
 
 import torch
 
+from matrix_eyes_tpu_torch import timings
+
 CAPACITY = 16  # live graphs
 MODES = ("eager", "capture", "replay")  # how a call runs its program
+_DISPATCH_SPANS = {m: f"dispatch.{m}" for m in MODES}
+_PROGRAM_ATTRS: Dict[str, Dict[str, str]] = {}  # a span's attributes, one dict per program
 _WARM_KEYS = 1024  # keys whose warm-up call ran, remembered for their second call
 
 
@@ -114,6 +126,15 @@ def enabled() -> bool:
 
 def _log_enabled() -> bool:
     return bool(os.environ.get("MATRIX_EYES_AOT_LOG"))
+
+
+def _span(name: str, mode: str):
+    """The span of a call's run: ``dispatch.<mode>``, the program's name as
+    its attribute (one dict per program, so a call allocates none)."""
+    attrs = _PROGRAM_ATTRS.get(name)
+    if attrs is None:
+        attrs = _PROGRAM_ATTRS.setdefault(name, {"program": name})
+    return timings.trace(_DISPATCH_SPANS[mode], attrs)
 
 
 # -- the wrappers' launch counters -------------------------------------------
@@ -420,7 +441,8 @@ class GraphCache:
         device = _device(args)
         if not enabled() or device is None or not self.backend.applies(device):
             self._begin(name, "eager")
-            return fn(*args)
+            with _span(name, "eager"):
+                return fn(*args)
         join_prefetch()
         key = self.key(name, args, salt)
         entry = self._live.get(key)
@@ -437,12 +459,15 @@ class GraphCache:
                         while len(self._warm) > _WARM_KEYS:
                             gone, _ = self._warm.popitem(last=False)
                             self._key_locks.pop(gone, None)
-                    self._begin(name, "eager" if first else "capture")
-                    if first:
-                        return fn(*args)
-                    return self._capture(name, fn, args, key, device)
+                    mode = "eager" if first else "capture"
+                    self._begin(name, mode)
+                    with _span(name, mode):
+                        if first:
+                            return fn(*args)
+                        return self._capture(name, fn, args, key, device)
         self._begin(name, "replay")
-        return self._replay(entry, args, device)
+        with _span(name, "replay"):
+            return self._replay(entry, args, device)
 
     def _begin(self, name: str, mode: str) -> None:
         """Record a call's mode (``modes``) just before it runs."""

@@ -14,6 +14,11 @@ device mesh (``parallel.launch``, one process per rank), each rank opens
 its own session and passes its ``mesh`` to ``inverse_depth_batch`` or
 ``process_batch``; a session on the CPU with a mesh of cards moves only
 each rank's cut of the parameters to its card.
+
+While the port records spans (``timings``), ``process``, ``depth_map`` and
+``inverse_depth_batch`` each record one (``api.<method>``), the root of a
+request when called from outside, and ``inverse_depth_batch`` its copy of
+the result to the host (``api.readback``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from matrix_eyes_tpu_torch import timings
 from matrix_eyes_tpu_torch.config import (
     ModelConfig,
     RuntimeConfig,
@@ -101,9 +107,10 @@ class MatrixEyes:
 
     def depth_map(self, image: Image, focal_length_35mm: Optional[float] = None) -> DepthMap:
         """Run the network on one image; returns the DepthMap on the device."""
-        src = self._load(image, focal_length_35mm)
-        inv = forward_photo(self.cfg, self.params, self._preprocess(src), src.f_norm())
-        return DepthMap.new(inv, src.original_size)
+        with timings.trace("api.depth_map"):
+            src = self._load(image, focal_length_35mm)
+            inv = forward_photo(self.cfg, self.params, self._preprocess(src), src.f_norm())
+            return DepthMap.new(inv, src.original_size)
 
     def inverse_depth(self, image: Image,
                       focal_length_35mm: Optional[float] = None) -> np.ndarray:
@@ -133,8 +140,11 @@ class MatrixEyes:
             focals = list(focal_length_35mm)
             if len(focals) != len(images):
                 raise ValueError(f"{len(images)} images but {len(focals)} focal lengths")
-        srcs = [self._load(im, f) for im, f in zip(images, focals)]
-        return self._forward(srcs, mesh=mesh).cpu().numpy()
+        with timings.trace("api.inverse_depth_batch"):
+            srcs = [self._load(im, f) for im, f in zip(images, focals)]
+            inv = self._forward(srcs, mesh=mesh)
+            with timings.trace("api.readback"):
+                return inv.cpu().numpy()
 
     def _forward(self, sources: Sequence[SourceImage], pad: int = 0,
                  mesh=None) -> torch.Tensor:
@@ -166,10 +176,11 @@ class MatrixEyes:
                 vertex_mode: str = "vertex-colors", resize_scale: Optional[float] = None,
                 stereo_amplitude: float = 1.0 / 16.0) -> None:
         """Photo -> output file, the CLI's dispatch (output.rs:100-121)."""
-        self.depth_map(source_path, focal_length_35mm).output_image(
-            destination_path, source_path, image_format=ImageOutputFormat(image_format),
-            vertex_mode=VertexMode(vertex_mode), resize_scale=resize_scale,
-            amplitude=stereo_amplitude, seed=self.runtime.seed)
+        with timings.trace("api.process"):
+            self.depth_map(source_path, focal_length_35mm).output_image(
+                destination_path, source_path, image_format=ImageOutputFormat(image_format),
+                vertex_mode=VertexMode(vertex_mode), resize_scale=resize_scale,
+                amplitude=stereo_amplitude, seed=self.runtime.seed)
 
     def process_batch(self, jobs: Sequence[Tuple[str, str]], batch_size: int = 4,
                       focal_length_35mm: Optional[float] = None, image_format: str = "depthmap",

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from matrix_eyes_tpu_torch import timings
 from matrix_eyes_tpu_torch.errors import ImageError
 
 _EXIF_FOCAL_35MM = 0xA405  # FocalLengthIn35mmFilm
@@ -66,6 +67,11 @@ def probe_focal_length_35mm(path: str) -> Optional[float]:
 
 
 def load_source_image(path: str, focal_length_35mm: Optional[float] = None) -> SourceImage:
+    with timings.trace("pipeline.decode"):
+        return _decode(path, focal_length_35mm)
+
+
+def _decode(path: str, focal_length_35mm: Optional[float]) -> SourceImage:
     from PIL import Image, ImageOps
 
     try:

@@ -96,18 +96,24 @@ def render_depth_map(data: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
 
 def readback(t: torch.Tensor) -> Callable[[], np.ndarray]:
     """Enqueue ``t``'s copy to the host now and return a function that waits
-    for that copy alone and gives it as numpy. On the card the copy goes to
-    pinned memory behind an event on the current stream, so work enqueued
-    after it (a batch's next forward) does not hold it up."""
+    for that copy alone (the span ``output.wait``) and gives it as numpy. On
+    the card the copy goes to pinned memory behind an event on the current
+    stream, so work enqueued after it (a batch's next forward) does not hold
+    it up."""
     if t.device.type != "cuda":
-        return t.numpy
+        def wait() -> np.ndarray:
+            with timings.trace("output.wait"):
+                return t.numpy()
+
+        return wait
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(t.device))
 
     def wait() -> np.ndarray:
-        done.synchronize()
+        with timings.trace("output.wait"):
+            done.synchronize()
         return host.numpy()
 
     return wait
@@ -181,9 +187,10 @@ class DepthMap:
         the source size times ``resize_scale``, or (``.obj``/``.ply``) the
         mesh in ``vertex_mode``; ``source_path`` is the photo that a mesh's
         vertex colours and texture refer to."""
-        self.prepare_output(destination_path, source_path, image_format=image_format,
-                            vertex_mode=vertex_mode, resize_scale=resize_scale,
-                            amplitude=amplitude, seed=seed)()
+        with timings.trace("output.write"):
+            self.prepare_output(destination_path, source_path, image_format=image_format,
+                                vertex_mode=vertex_mode, resize_scale=resize_scale,
+                                amplitude=amplitude, seed=seed)()
 
     def _prepare_stereogram(self, destination_path: str, resize_scale: Optional[float],
                             amplitude: float, seed: int) -> Callable[[], None]:

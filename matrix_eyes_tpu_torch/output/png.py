@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from matrix_eyes_tpu_torch import timings
 from matrix_eyes_tpu_torch.errors import OutputError
 from matrix_eyes_tpu_torch.native import pngwriter
 
@@ -44,9 +45,10 @@ def split_supported() -> bool:
 def _encode(rgb: np.ndarray, path: str, profile: dict) -> None:
     h, w = rgb.shape[:2]
     try:
-        with pngwriter.PngEncoder(path, w, h, **profile) as enc:
-            for stripe in _host_stripes(rgb):
-                enc.write_rows(stripe)
+        with timings.trace("output.encode"):
+            with pngwriter.PngEncoder(path, w, h, **profile) as enc:
+                for stripe in _host_stripes(rgb):
+                    enc.write_rows(stripe)
     except OSError as e:
         raise OutputError(f"Image error: {e}") from e
 
@@ -58,7 +60,8 @@ def save_depthmap_host_resize(grid: np.ndarray, path: str, out_h: int, out_w: in
     from matrix_eyes_tpu_torch.native import lanczos
 
     try:
-        full = lanczos.resize_rgb8(grid, out_h, out_w)
+        with timings.trace("output.resize"):
+            full = lanczos.resize_rgb8(grid, out_h, out_w)
     except OSError as e:
         raise OutputError(f"Image error: {e}") from e
     _encode(full, path, DEPTH_MAP)

@@ -58,8 +58,10 @@ def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
     mean = std = 0.5. ``rgb_u8``: (H, W, 3) u8, numpy or a tensor already
     on ``device`` (the server's upload). Returns (1, S, S, 3) NHWC. The
     photo's copy to the device runs before the ``preprocess`` program."""
-    x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
-    return aot.call_cached("preprocess", _preprocess, (x.to(device), img_size, dtype))
+    with timings.trace("pipeline.upload"):
+        x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
+        x = x.to(device)
+    return aot.call_cached("preprocess", _preprocess, (x, img_size, dtype))
 
 
 def _program(mesh, name: str, fn, args: tuple, salt: str):
@@ -77,13 +79,16 @@ def forward_photo(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
     forward (``fwd_fnorm``), or without a focal length the FOV head's
     (``fwd_fov``). The focal length goes to the device before the
     program."""
-    if f_norm is not None:
-        f = torch.tensor([f_norm], dtype=torch.float32, device=img.device)
-        return _program(mesh, "fwd_fnorm", functools.partial(depth_pro.forward_with_fnorm, cfg),
-                        (params, img, f), repr(cfg))[0]
-    inv, _fov_deg = _program(mesh, "fwd_fov", functools.partial(depth_pro.forward_with_fov, cfg),
-                             (params, img), repr(cfg))
-    return inv[0]
+    with timings.trace("pipeline.forward"):
+        if f_norm is not None:
+            f = torch.tensor([f_norm], dtype=torch.float32, device=img.device)
+            return _program(mesh, "fwd_fnorm",
+                            functools.partial(depth_pro.forward_with_fnorm, cfg),
+                            (params, img, f), repr(cfg))[0]
+        inv, _fov_deg = _program(mesh, "fwd_fov",
+                                 functools.partial(depth_pro.forward_with_fov, cfg),
+                                 (params, img), repr(cfg))
+        return inv[0]
 
 
 def forward_batch(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
@@ -92,6 +97,12 @@ def forward_batch(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
     f_norm is known (``fwd_fnorm_b{N}``), else the mixed one
     (``fwd_mixed_b{N}``: the FOV head fills the images whose f_norm is
     None). Returns the (B, S, S) inverse depth on the device."""
+    with timings.trace("pipeline.forward"):
+        return _forward_batch(cfg, params, img, f_norms, mesh)
+
+
+def _forward_batch(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
+                   f_norms: Sequence[Optional[float]], mesh) -> torch.Tensor:
     B = img.shape[0]
     if all(f is not None for f in f_norms):
         f = torch.tensor(f_norms, dtype=torch.float32, device=img.device)
@@ -151,8 +162,9 @@ def _follower_error(status: int) -> MatrixEyesError:
 
 
 def _wait_for_forward(device: torch.device) -> None:
-    """With timings on, end the forward's span when the card is done, so
-    that the output stage is not charged with it."""
+    """With ``MATRIX_EYES_TIMINGS`` on, end the forward's span when the card
+    is done, so that the output stage is not charged with it. A span
+    recorded under the profiler alone waits for nothing."""
     if timings.enabled() and device.type == "cuda":
         torch.cuda.synchronize(device)
 

@@ -46,6 +46,17 @@ output's size. Errors are JSON: 400 for bad input (undecodable photo,
 unknown format, numbers out of range), 500 for reconstruction failures,
 with the CLI's stage messages. ``scripts/torch_serve_burst.py`` measures
 burst throughput and latency through real HTTP.
+
+Each HTTP request is one request of the port's span recorder
+(``timings.trace``; recorded under ``MATRIX_EYES_TIMINGS`` or a running
+``torch.profiler``): the root ``serve.request``, and ``serve.body`` (the
+body read), ``serve.upload`` (the copy to the card started),
+``serve.queue`` (waiting for the device section), ``serve.batch`` (a
+leader's batched forward), ``serve.reply`` (the result's reply) beside the
+session's own spans (``pipeline.decode``, ``api.depth_map``, ``output.*``,
+``dispatch.*``).
+Under ``MATRIX_EYES_TIMINGS`` each request's log line ends with its spans'
+milliseconds.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
+from matrix_eyes_tpu_torch import timings
 from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
 from matrix_eyes_tpu_torch.io.image import load_source_image
 
@@ -217,6 +229,11 @@ class _MicroBatcher:
     two, as the JAX server does); followers whose job was taken wait for
     their result. Under burst load N forwards become ceil(N / max_batch).
     A request that arrives while the card is idle still runs alone.
+
+    Spans: ``serve.queue`` from a job's enqueue until its own thread takes
+    it as leader, or until a leader has set its result; ``serve.batch``
+    around the leader's batched forward, the request ids it served in its
+    ``requests`` attribute.
     """
 
     def __init__(self, session, lock: threading.Lock, max_batch: int):
@@ -230,43 +247,18 @@ class _MicroBatcher:
         """``ready``: _upload's callable, run in the device section before
         the forward that takes this job."""
         job = {"src": source, "ready": ready, "ev": threading.Event(),
-               "dm": None, "err": None}
-        with self._q_lock:
-            self._q.append(job)
-        if not job["ev"].is_set():
-            with self.lock:
-                # a previous leader may have taken our job while we waited
-                # for the lock (it sets our event); otherwise we lead, and
-                # the batch must contain our own job: draining only the
-                # queue's head could serve four peers and strand us
-                with self._q_lock:
-                    # identity, not ``in``: a SourceImage's == compares pixels
-                    mine = next((i for i, j in enumerate(self._q)
-                                 if j is job), None)
-                    if mine is not None:
-                        self._q.pop(mine)
-                        peers = self._q[:self.max_batch - 1]
-                        del self._q[:len(peers)]
-                        take = [job] + peers
-                    else:
-                        take = []
-                if take:
-                    try:
-                        for j in take:
-                            if j["ready"] is not None:
-                                j["ready"]()
-                        dms = self.session.depth_maps(
-                            [j["src"] for j in take], pad_to_pow2=True)
-                        _wait_for_device(dms)
-                        for j, dm in zip(take, dms):
-                            j["dm"] = dm
-                    except Exception as err:
-                        for j in take:
-                            j["err"] = err
-                    finally:
-                        for j in take:
-                            j["ev"].set()
-        job["ev"].wait()
+               "dm": None, "err": None, "request": timings.current_request()}
+        with timings.trace("serve.queue"):
+            with self._q_lock:
+                self._q.append(job)
+            take = self._lead(job)
+            if not take:
+                job["ev"].wait()
+        if take:
+            try:
+                self._run(take)
+            finally:
+                self.lock.release()
         if job["err"] is not None:
             # every job of a failed batch shares one exception; raising it
             # from several threads would garble its traceback, so each
@@ -279,6 +271,51 @@ class _MicroBatcher:
             raise clone from err
         return job["dm"]
 
+    def _lead(self, job) -> list:
+        """The batch this thread leads, with the device lock held: ``job``
+        and up to ``max_batch`` - 1 queued peers. [] (the lock not held)
+        when a leader has taken ``job``: its event is set, or will be when
+        that leader's batch ends."""
+        if job["ev"].is_set():
+            return []
+        self.lock.acquire()
+        # a previous leader may have taken our job while we waited for the
+        # lock (it sets our event); otherwise we lead, and the batch must
+        # contain our own job: draining only the queue's head could serve
+        # four peers and strand us
+        with self._q_lock:
+            # identity, not ``in``: a SourceImage's == compares pixels
+            mine = next((i for i, j in enumerate(self._q) if j is job), None)
+            if mine is None:
+                take = []
+            else:
+                self._q.pop(mine)
+                peers = self._q[:self.max_batch - 1]
+                del self._q[:len(peers)]
+                take = [job] + peers
+        if not take:
+            self.lock.release()
+        return take
+
+    def _run(self, take: list) -> None:
+        """The batched forward of the jobs ``take``; every job gets its
+        result or the batch's error, and its event."""
+        with timings.trace("serve.batch", {"requests": [j["request"] for j in take]}):
+            try:
+                for j in take:
+                    if j["ready"] is not None:
+                        j["ready"]()
+                dms = self.session.depth_maps([j["src"] for j in take], pad_to_pow2=True)
+                _wait_for_device(dms)
+                for j, dm in zip(take, dms):
+                    j["dm"] = dm
+            except Exception as err:
+                for j in take:
+                    j["err"] = err
+            finally:
+                for j in take:
+                    j["ev"].set()
+
 
 class _Handler(BaseHTTPRequestHandler):
     # set by create_server
@@ -287,25 +324,50 @@ class _Handler(BaseHTTPRequestHandler):
     inflight: threading.BoundedSemaphore = None
     batcher: Optional[_MicroBatcher] = None  # --max-batch > 1
     protocol_version = "HTTP/1.1"
+    _root = None  # the open request's ``serve.request`` span, while recorded
 
     def _forward(self, source):
         """The device section of a request: the model forward, alone or
         coalesced with others (_MicroBatcher). The photo's copy to the card
         starts before it."""
-        source, ready = _upload(source, self.session.runtime.resolved_device())
+        with timings.trace("serve.upload"):
+            source, ready = _upload(source, self.session.runtime.resolved_device())
         if self.batcher is not None:
             return self.batcher.depth_map(source, ready)
-        with self.lock:
+        with timings.trace("serve.queue"):
+            self.lock.acquire()
+        try:
             if ready is not None:
                 ready()
             dm = self.session.depth_map(source)
             _wait_for_device([dm])
+        finally:
+            self.lock.release()
         return dm
 
     # -- plumbing ----------------------------------------------------------
 
+    def _traced(self, handle) -> None:
+        """``handle()`` as one request: the root span ``serve.request``."""
+        with timings.trace("serve.request") as root:
+            self._root = root
+            try:
+                handle()
+            finally:
+                self._root = None
+
     def log_message(self, fmt, *args):  # one line per request
-        print(f"serve: {self.address_string()} {fmt % args}", flush=True)
+        """Under ``MATRIX_EYES_TIMINGS``, the line ends with the milliseconds
+        of the request's spans that have ended, by name."""
+        line = f"serve: {self.address_string()} {fmt % args}"
+        root = self._root
+        if root is not None and timings.enabled():
+            ms: dict = {}
+            for s in timings.request_spans(root.request, root.start_ns):
+                ms[s.name] = ms.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e6
+            line += f" [request {root.request}: " + ", ".join(
+                f"{name} {v:.2f} ms" for name, v in ms.items()) + "]"
+        print(line, flush=True)
 
     def _reply(self, code: int, body, ctype: str) -> None:
         """``body``: bytes (small replies) or a _FileResponse, streamed in
@@ -345,6 +407,12 @@ class _Handler(BaseHTTPRequestHandler):
     # -- routes ------------------------------------------------------------
 
     def do_GET(self):
+        self._traced(self._get)
+
+    def do_POST(self):
+        self._traced(self._post)
+
+    def _get(self):
         path = urlparse(self.path).path
         if path == "/healthz":
             rt = self.session.runtime
@@ -365,7 +433,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._reply_json(404, {"error": f"no such route: {path}"})
 
-    def do_POST(self):
+    def _post(self):
         url = urlparse(self.path)
         q = parse_qs(url.query)
         # bound the work in flight before reading the body: the server
@@ -386,7 +454,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             try:
-                body = self._read_body()
+                with timings.trace("serve.body"):
+                    body = self._read_body()
                 if url.path == "/v1/process":
                     out, ctype = self._process(body, q)
                 elif url.path == "/v1/depth":
@@ -424,7 +493,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
             try:
-                self._reply(200, out, ctype)
+                with timings.trace("serve.reply"):
+                    self._reply(200, out, ctype)
             except (BrokenPipeError, ConnectionResetError) as e:
                 # the client went away before or during the transfer
                 self.close_connection = True

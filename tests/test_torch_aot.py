@@ -342,6 +342,32 @@ def test_a_mesh_cache_records_each_calls_mode(graphs_on):
     assert list(cache.modes) == [("fwd_fov", m) for m in ("eager", "capture", "replay", "eager")]
 
 
+@pytest.mark.parametrize("where", ["process", "mesh"])
+def test_each_call_records_a_dispatch_span_with_its_program(graphs_on, monkeypatch, where):
+    # the spans' count by mode is the replay counter; each names its program
+    from matrix_eyes_tpu_torch import timings
+
+    monkeypatch.setenv("MATRIX_EYES_TIMINGS", "1")
+    timings.clear()
+    cache = (aot.GraphCache(FakeGraphs()) if where == "process"
+             else aot.mesh_cache(Mesh(data=1, model=1, backend="nccl"), FakeGraphs()))
+    try:
+        for name in ("fwd_fnorm", "fwd_fnorm", "render_depthmap", "fwd_fnorm", "fwd_fnorm"):
+            cache.call(name, lambda x: x + 1, (_X,))
+        with aot.disabled():
+            cache.call("fwd_fnorm", lambda x: x + 1, (_X,))
+        spans = timings.recorded()
+    finally:
+        timings.clear()
+    assert [(s.name, s.attrs) for s in spans] == [
+        ("dispatch.eager", {"program": "fwd_fnorm"}), ("dispatch.capture", {"program": "fwd_fnorm"}),
+        ("dispatch.eager", {"program": "render_depthmap"}),
+        ("dispatch.replay", {"program": "fwd_fnorm"}), ("dispatch.replay", {"program": "fwd_fnorm"}),
+        ("dispatch.eager", {"program": "fwd_fnorm"})]
+    assert [m for _n, m in cache.modes] == [s.name.split(".")[1] for s in spans]
+    assert all(s.parent is None and s.start_ns <= s.end_ns for s in spans)
+
+
 def test_a_gloo_mesh_never_reaches_the_capture_backend(graphs_on, monkeypatch):
     # gloo stages CUDA tensors through host memory: its mesh's forwards run
     # eagerly by rule, on every call, and no graph backend is consulted

@@ -553,6 +553,55 @@ def test_uploaded_pixels_preprocess_as_numpy():
     assert tserve._upload(src, torch.device("cpu")) == (src, None)
 
 
+def test_batched_requests_are_traced_each_in_its_own_request(ckpt, jpeg, monkeypatch,
+                                                             capsys):
+    # two /v1/depth requests queue behind the held device lock, then one
+    # leader serves both in one batch: each request is a request of the
+    # recorder, the batch span names both, and under MATRIX_EYES_TIMINGS
+    # each log line carries its request's span milliseconds
+    from matrix_eyes_tpu_torch import timings
+
+    monkeypatch.setenv("MATRIX_EYES_TIMINGS", "1")
+    timings.clear()
+    server = create_server(MatrixEyes(ckpt, device="cpu"), port=0, max_batch=2)
+    handler = server.RequestHandlerClass
+    base, t = _start(server)
+    results = []
+    try:
+        handler.lock.acquire()
+        threads = [threading.Thread(target=lambda: results.append(
+            _post(base + "/v1/depth?focal-length=35", jpeg)[0])) for _ in range(2)]
+        for th in threads:
+            th.start()
+        _wait_until(lambda: len(handler.batcher._q) >= 2, tries=500)
+        assert len(handler.batcher._q) == 2
+        handler.lock.release()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        _stop(server, t)
+        spans = timings.recorded()
+        timings.clear()  # the table too: the session's load is in it
+    assert results == [200, 200]
+    roots = [s for s in spans if s.name == "serve.request"]
+    assert len(roots) == 2 and all(s.parent is None for s in roots)
+    ids = sorted(s.request for s in roots)
+    assert ids[0] != ids[1]
+    (batch,) = [s for s in spans if s.name == "serve.batch"]
+    assert sorted(batch.attrs["requests"]) == ids
+    for rid in ids:
+        mine = {s.name for s in spans if s.request == rid}
+        assert {"serve.body", "pipeline.decode", "serve.upload", "serve.queue",
+                "serve.reply"} <= mine
+    # the leader's request holds the forward
+    assert {s.request for s in spans if s.name in ("api.depth_map", "pipeline.forward")} <= \
+        {batch.request}
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "POST /v1/depth" in ln]
+    assert len(lines) == 2
+    for ln in lines:
+        assert "[request " in ln and "serve.body " in ln and " ms" in ln and "serve.queue" in ln
+
+
 # --- against the JAX server -----------------------------------------------------------
 
 @pytest.fixture(scope="module")
