@@ -8,10 +8,11 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 1. environment: versions, the card, its power limit, host encoders;
-2. build the four CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
+2. build the five CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
    nvcc each, all at once), and print ptxas's registers, spills and the
-   dynamic shared memory of the tensor-core kernels, and the threefry
-   kernel's ptxas report and SASS instruction count (``cuobjdump``);
+   dynamic shared memory of the tensor-core kernels, the ViT elementwise
+   kernels' registers, and the threefry kernel's ptxas report and SASS
+   instruction count (``cuobjdump``);
 3. each kernel entry against its plain PyTorch version on the card, at the
    shapes the main path gives it, with errors and warm times, the least
    time the card could take (``bound_ms``: the larger of the bytes over
@@ -162,7 +163,17 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    of the entry points eagerly; (d) with two cards NCCL 1x2 and 2x1, with
    four also 2x2, each replay bit-equal to its eager call and within the
    bf16 gate of phase 4; on one card a line says these meshes run in
-   ``scripts/torch_mesh_check.py --graphs``.
+   ``scripts/torch_mesh_check.py --graphs``;
+19. the ViT block's one-pass elementwise kernels (``csrc/vit_elementwise.cu``:
+   ``ops/nn.py``'s ``gelu_`` and ``scaled_residual``) against their plain
+   versions, PyTorch's three-pass chains, bit for bit at the main path's
+   shapes (``VIT_ELEMENTWISE_SHAPES``) and at ragged ones (GELU in place,
+   as the ViT block runs it), with the
+   kernel's time by CUDA events and by the profiler, its byte bound at
+   3.35 TB/s and the chain's time; then one ``fwd_mixed_b4`` forward of
+   DEPTH_PRO under the mixed policy three times through the graph cache
+   (eager, capture, replay), each counted: 72 gelu and 144 scaled_residual
+   launches, by shape, with ``F.gelu`` made to raise inside the forward.
 
 Phases 4-16 and 18 run with the graph cache on, its default: a program's first
 call with a signature runs eagerly, the second runs eagerly once more and
@@ -312,6 +323,23 @@ THREEFRY_SHAPES = [  # the noise planes of a 4032x3024 photo's stereograms
     (7, 13, 3),        # 273 bytes: a ragged tail past 16-byte stores
 ]
 THREEFRY_SEEDS = (0, -1, 2**31 + 3)
+# the ViT block's elementwise chains, (kernel, shape, dtypes, timed): GELU on
+# the (tokens, 4096) hidden, the residual's x, o and ls on (tokens, 1024)
+VIT_ELEMENTWISE_SHAPES = [
+    ("gelu", (140, 577, 4096), ("bf16",), True),   # patch ViT, a batch of four
+    ("gelu", (35, 577, 4096), ("bf16",), True),    # patch ViT, one photo
+    ("gelu", (4, 577, 4096), ("bf16",), True),     # image ViT, a batch of four
+    ("gelu", (4, 577, 4096), ("f32",), True),      # FOV ViT (f32 under every policy)
+    ("gelu", (35, 577, 4096), ("f16",), True),     # patch ViT under --dtype f16
+    ("gelu", (3, 7, 37), ("bf16",), False),        # 777 elements: a tail past the chunks
+    ("scaled_residual", (140, 577, 1024), ("f32", "bf16", "bf16"), True),  # bf16, int8
+    ("scaled_residual", (140, 577, 1024), ("f32", "bf16", "f32"), True),   # mixed
+    ("scaled_residual", (35, 577, 1024), ("f32", "bf16", "bf16"), True),   # one photo
+    ("scaled_residual", (4, 577, 1024), ("f32", "f32", "f32"), True),      # FOV ViT
+    ("scaled_residual", (35, 577, 1024), ("f32", "f16", "f16"), True),     # --dtype f16
+    ("scaled_residual", (3, 7, 16), ("bf16", "bf16", "bf16"), False),  # no f32 residual
+    ("scaled_residual", (5, 3, 24), ("f16", "bf16", "f32"), False),   # mixed dtypes, ragged rows
+]
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
 # residual-unit convs, the head's 2) in bf16, in f32 (--dtype f32 and the
@@ -460,7 +488,8 @@ def phase_environment() -> str:
 
 _NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel", "conv3x3_split_weights",
                 "conv3x3_splitk_reduce", "attention_wgmma_kernel", "attention_tf32_kernel",
-                "split_tf32_kernel", "linker_scan_kernel", "randint_u8_kernel")
+                "split_tf32_kernel", "linker_scan_kernel", "randint_u8_kernel",
+                "vit_gelu_kernel", "vit_scaled_residual_kernel")
 # template arguments as the mangled names spell them
 _MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|6__half|f"
 
@@ -499,12 +528,12 @@ def phase_build():
     from matrix_eyes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ["attention_qkv", "conv3x3", "linker_scan", "threefry"]
+    names = ["attention_qkv", "conv3x3", "linker_scan", "threefry", "vit_elementwise"]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("conv3x3", "attention_qkv", "linker_scan", "threefry"):
+    for name in ("conv3x3", "attention_qkv", "linker_scan", "threefry", "vit_elementwise"):
         for line in _ptxas_lines(_build.ptxas_report(name)):
             print(f"[2] ptxas {line}")
         require("C7514" not in _build.ptxas_report(name),
@@ -2551,6 +2580,132 @@ def phase_mesh_graphs(dev, src, ref_inv, weights: str, gloo_modes: dict) -> dict
     return counts
 
 
+def _vit_elementwise_inputs(kernel: str, shape: tuple, dtypes: tuple, dev) -> tuple:
+    """Seeded operands: normal values at scales 1e-3 to 1e3 (GELU's input),
+    a residual stream, a branch output and LayerScale values near 0.1."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    dt = [getattr(torch, {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}[d])
+          for d in dtypes]
+
+    def normal(shp, scale):
+        return torch.randn(shp, generator=gen, device=dev) * scale
+
+    if kernel == "gelu":
+        x = normal(shape, 1.0) * torch.exp(
+            torch.empty(shape, device=dev).uniform_(-7.0, 7.0, generator=gen))
+        return (x.to(dt[0]),)
+    return (normal(shape, 1.0).to(dt[0]), normal(shape, 1.0).to(dt[1]),
+            normal(shape[-1:], 0.1).to(dt[2]))
+
+
+def vit_elementwise_row(dev, kernel: str, shape: tuple, dtypes: tuple, timed: bool) -> dict:
+    """One kernel against its plain version (the PyTorch chain on the card)
+    at shape, bit for bit; when ``timed``, the kernel's and the chain's
+    time by CUDA events and by the profiler, and the byte bound: each
+    operand read once at its dtype and the output written once."""
+    import torch
+
+    from matrix_eyes_tpu_torch.ops import nn
+    from matrix_eyes_tpu_torch.parallel.checks import device_ms
+
+    plain = getattr(nn, f"{kernel}_plain")
+    args = _vit_elementwise_inputs(kernel, shape, dtypes, dev)
+    if kernel == "gelu":  # in place, as the ViT block calls it, on a copy kept for the timing
+        work = args[0].clone()
+        fn = lambda: nn.gelu_(work)  # noqa: E731
+        got = nn.gelu_(args[0].clone())
+    else:
+        fn = lambda: nn.scaled_residual(*args)  # noqa: E731
+        got = fn()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    differing = int((got.view(bits) != want.view(bits)).sum().item())
+    res = {"shape": f"{'x'.join(map(str, shape))} {'/'.join(dtypes)}",
+           "ok": got.dtype == want.dtype and differing == 0, "differing": differing}
+    nbytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
+    res["bound_ms"], res["bound_by"] = nbytes / PEAK_BYTES_S * 1e3, "bytes"
+    if timed:
+        reps = 20
+        res["ms"] = time_ms(fn, reps)
+        res["device_ms"] = device_ms(fn, reps)[0]
+        res["chain_ms"] = time_ms(lambda: plain(*args), reps)
+        res["chain_device_ms"] = device_ms(lambda: plain(*args), reps)[0]
+        res["bound_share"] = res["bound_ms"] / res["device_ms"]
+    times = (f"ms={res['ms']:.4f} device_ms={res['device_ms']:.4f} chain_ms={res['chain_ms']:.4f} "
+             f"chain_device_ms={res['chain_device_ms']:.4f} bound share "
+             f"{100 * res['bound_share']:.1f}% " if timed else "")
+    print(f"[19] {kernel} {res['shape']}: {nbytes / 1e9:.4f} GB, {times}"
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"{'ok (bit-exact)' if res['ok'] else 'FAIL: %d elements differ' % res['differing']}")
+    return res
+
+
+def phase_vit_elementwise(dev) -> dict:
+    """The ViT block's one-pass GELU and LayerScale residual add against
+    their chains at ``VIT_ELEMENTWISE_SHAPES``, then one DEPTH_PRO
+    ``fwd_mixed_b4`` forward under the mixed policy (phase 4's seed),
+    eager, captured and replayed, each counted. Returns the rows and the
+    counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.config import DEPTH_PRO
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.ops import nn
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    rows = [vit_elementwise_row(dev, *row) for row in VIT_ELEMENTWISE_SHAPES]
+    bad = [r["shape"] for r in rows if not r["ok"]]
+    require(not bad, f"vit_elementwise kernels differ from their chains at {bad}")
+
+    cfg = DEPTH_PRO
+    canonical = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, torch.float32)
+    params = place_params(canonical, dev, torch.bfloat16, mixed_bf16=True)
+    del canonical
+    gen = torch.Generator(device=dev).manual_seed(4)
+    img = torch.rand((4, cfg.img_size, cfg.img_size, 3), generator=gen, device=dev) * 2 - 1
+    f_norms = [0.8, None, 0.6, 0.7]
+
+    real_gelu = F.gelu
+
+    def no_gelu(x, *args, **kwargs):
+        require(not x.is_cuda, "F.gelu reached on a CUDA tensor inside the forward")
+        return real_gelu(x, *args, **kwargs)
+
+    counts = []
+    F.gelu = no_gelu
+    try:
+        for _ in range(3):  # eager, capture, replay
+            nn.gelu_.launches = nn.scaled_residual.launches = 0
+            nn.gelu_.launches_by_shape.clear()
+            nn.scaled_residual.launches_by_shape.clear()
+            inv = pipeline.forward_batch(cfg, params, img, f_norms)
+            torch.cuda.synchronize()
+            counts.append({"gelu": nn.gelu_.launches,
+                           "scaled_residual": nn.scaled_residual.launches,
+                           "gelu_by_shape": {str(k): v for k, v in
+                                             nn.gelu_.launches_by_shape.items()},
+                           "scaled_residual_by_shape": {
+                               str(k): v for k, v in nn.scaled_residual.launches_by_shape.items()}})
+    finally:
+        F.gelu = real_gelu
+    require(bool(torch.isfinite(inv).all()), "fwd_mixed_b4: non-finite inverse depth")
+    for c in counts:
+        print(f"[19] fwd_mixed_b4 (mixed policy): gelu {c['gelu']} launches "
+              f"{c['gelu_by_shape']}, scaled_residual {c['scaled_residual']} launches "
+              f"{c['scaled_residual_by_shape']}")
+    want = (3 * cfg.depth, 6 * cfg.depth)
+    require(all((c["gelu"], c["scaled_residual"]) == want for c in counts),
+            f"fwd_mixed_b4 launched gelu/scaled_residual {counts}, expected {want} per call")
+    del params, img, inv
+    torch.cuda.empty_cache()
+    return {"rows": rows, "fwd_mixed_b4": counts[0]}
+
+
 def main() -> int:
     import torch
 
@@ -2604,6 +2759,7 @@ def main() -> int:
         by_path.update(phase_mesh_graphs(dev, src, inv_bf16, weights, gloo_modes))
     finally:
         os.remove(weights)
+    vit_elementwise = phase_vit_elementwise(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -2667,6 +2823,15 @@ def main() -> int:
             kernels[-1]["batch4_f32"] = {k: hot["conv3x3_batch4_f32"][k]
                                          for k in row_keys + ("bound_cuda_core_ms",)}
             kernels[-1]["past_2e31"] = {k: hot["conv3x3_past_2e31"][k] for k in row_keys}
+    # not TPU kernels: XLA fused these chains into the ViT block's programs
+    for name in ("gelu", "scaled_residual"):
+        kernels.append({"name": name, "route": "cuda", "tpu_kernel": False,
+                        "source": "matrix_eyes_tpu_torch/csrc/vit_elementwise.cu",
+                        "replaces": "matrix_eyes_tpu/models/vit.py::block_forward",
+                        "launches": vit_elementwise["fwd_mixed_b4"][name],
+                        "launches_path": "fwd_mixed_b4",
+                        "rows": [r for r, (k, *_rest) in zip(vit_elementwise["rows"],
+                                                            VIT_ELEMENTWISE_SHAPES) if k == name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

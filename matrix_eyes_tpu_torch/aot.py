@@ -73,9 +73,9 @@ enqueued, the graph launched, the output clones enqueued.
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counters' increments during a capture are recorded and added
 again at every replay (``_LaunchCounters``), so a forward counts 72
-attention and 24 conv3x3 launches however it ran, and on a mesh the
-collectives it called (``parallel.collectives``' counts, bytes and gather
-shapes), which ``collectives.check_forward`` reads.
+attention, 24 conv3x3, 72 gelu and 144 scaled_residual launches however it
+ran, and on a mesh the collectives it called (``parallel.collectives``'
+counts, bytes and gather shapes), which ``collectives.check_forward`` reads.
 
 On a device mesh (``parallel``: one process per rank) the forwards go
 through a cache of the mesh's own (``mesh_cache``), whose key also names
@@ -149,6 +149,7 @@ class _LaunchCounters:
     def _fields() -> List[Tuple[Any, str]]:
         from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
         from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
+        from matrix_eyes_tpu_torch.ops.nn import gelu_, scaled_residual
         from matrix_eyes_tpu_torch.ops.prng import randint_u8
         from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
         from matrix_eyes_tpu_torch.parallel import collectives
@@ -158,7 +159,9 @@ class _LaunchCounters:
                 (attention_flash, "launches"), (conv3x3, "launches"),
                 (conv3x3, "launches_by_shape"), (linker_scan, "launches"),
                 (collectives, "counts"), (collectives, "result_bytes"),
-                (collectives, "gather_shapes"), (randint_u8, "launches")]
+                (collectives, "gather_shapes"), (randint_u8, "launches"),
+                (gelu_, "launches"), (gelu_, "launches_by_shape"),
+                (scaled_residual, "launches"), (scaled_residual, "launches_by_shape")]
 
     @classmethod
     def snapshot(cls) -> list:
@@ -632,7 +635,7 @@ _prefetch: Optional[Future] = None
 
 def prefetch_async(device) -> Optional[Future]:
     """Start the first call's one-time work on a background thread: the
-    CUDA context on ``device``, the four kernel libraries (built if
+    CUDA context on ``device``, the five kernel libraries (built if
     missing, loaded) and their kernels (loaded, their shared-memory limits
     set). The CLI calls this before the checkpoint load, as the JAX CLI
     starts deserializing its executables before the weight upload. A
@@ -675,11 +678,11 @@ def join_prefetch() -> None:
 
 
 def _warm_up(device: torch.device) -> None:
-    from matrix_eyes_tpu_torch.ops import conv3x3, flash_attention, prng, stereogram_kernel
+    from matrix_eyes_tpu_torch.ops import conv3x3, flash_attention, nn, prng, stereogram_kernel
 
     with torch.cuda.device(device):
         torch.cuda.init()
-        for module in (flash_attention, conv3x3, stereogram_kernel, prng):
+        for module in (flash_attention, conv3x3, nn, stereogram_kernel, prng):
             module.prepare()
 
 

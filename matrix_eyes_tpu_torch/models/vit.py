@@ -9,7 +9,8 @@ Under a narrow compute dtype the residual stream is carried in f32
 (``cfg.vit_f32_residual``): branch inputs are cast down to the weights'
 dtype for the matmuls, while LayerNorm inputs, residual adds and the
 LayerScale products run in f32, the branch output cast up BEFORE the
-LayerScale multiply.
+LayerScale multiply. The GELU and the LayerScale residual add run as one
+pass each on the card (``nn.gelu_``, ``nn.scaled_residual``).
 
 Under ``--dtype int8`` the blocks hold int8 matmul weights (``qkv_qw``,
 ``proj_qw``, ... with f32 scales, ``ops/quant.py``): qkv and fc1 run as
@@ -97,17 +98,17 @@ def block_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     o = attention_qkv(qkv, cfg.num_heads // k, scale)
     proj_w = dequantize_weight(p["proj_qw"], p["proj_sw"], wdt) if quantized else p["proj_w"]
     o = _row_linear(o, proj_w, p["proj_b"], mesh)
-    x = x + o.to(x.dtype) * p["ls1"].to(x.dtype)
+    x = nn.scaled_residual(x, o, p["ls1"])
 
     h = nn.layer_norm(x, p["norm2_scale"], p["norm2_bias"], cfg.layer_norm_eps).to(wdt)
     if quantized:
         h = qlinear(h, p["fc1_qw"], p["fc1_sw"], p["fc1_b"])
     else:
         h = nn.linear(h, p["fc1_w"], p["fc1_b"])
-    h = nn.gelu(h)
+    h = nn.gelu_(h)
     fc2_w = dequantize_weight(p["fc2_qw"], p["fc2_sw"], wdt) if quantized else p["fc2_w"]
     h = _row_linear(h, fc2_w, p["fc2_b"], mesh)
-    return x + h.to(x.dtype) * p["ls2"].to(x.dtype)
+    return nn.scaled_residual(x, h, p["ls2"])
 
 
 def prepare_tokens(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
