@@ -2,10 +2,13 @@
 sampled over the window, against the plain float32 reference
 (``eyebench.reference``) worked out again from the same inputs.
 
-The reference makes the weights again from the configuration's
-``weights_seed``, decodes the photo
-files itself, and runs one photo at a time after the program's state is
-freed. A sample is one of:
+The reference is the configuration's architecture's
+(``eyebench/harness/architecture.py``): its ``make_weights`` makes the
+weights again from the configuration's ``weights_seed`` when a sample
+first needs them, its ``reference`` gives one photo's inverse depth and its
+``depth_map`` a depth map's pixels. The check decodes the photo files
+itself and runs one photo at a time after the program's state is freed.
+A sample is one of:
 
 * ``("png", path, photo)``: a depth-map PNG the program wrote or served,
   decoded, against the reference's depth map at the photo's size.
@@ -17,15 +20,16 @@ freed. A sample is one of:
   ``inv_gap``, the largest absolute difference over the reference's
   largest value; ``inv_mean_gap``, the mean absolute difference over the
   reference's mean; ``inv_pool<k>_gap``, the same of the k x k block means
-  (detail averaged away, the error of the coarse depth kept). An image
-  whose focal length the FOV head estimated is judged instead by
-  ``fov_gap``, the focal scale the output implies against the
-  reference's, |median of program / reference - 1| over the pixels the
-  reference does not clamp: its whole depth map scales with the estimate,
-  so that its inverse depth gaps would read the FOV's error and hide the
-  rest. Where the reference clamps every pixel of it (random weights can
+  (detail averaged away, the error of the coarse depth kept). Where the
+  architecture ``has_fov``, an image whose focal length the model
+  estimated is judged instead by ``fov_gap``, the focal scale the output
+  implies against the reference's, |median of program / reference - 1|
+  over the pixels the reference does not clamp: its whole depth map scales
+  with the estimate, so that its inverse depth gaps would read the FOV's
+  error and hide the rest. Where the reference clamps every pixel of it (random weights can
   put the estimate far out), it has no ``fov_gap`` and joins the inverse
-  depth gaps, and ``fov_unread`` counts it.
+  depth gaps, and ``fov_unread`` counts it. Without ``has_fov`` such an
+  image joins the inverse depth gaps and ``fov_unread`` is not written.
 
 A sample of another kind is judged by ``eyebench/checks/<kind>.py``, which
 a later cell adds. Each number is the worst over the samples. A cell's limits file names the
@@ -38,6 +42,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from eyebench.harness import architecture
 
 POOLS = (8, 32, 128)
 
@@ -75,34 +81,28 @@ def compare(samples, config: dict, device, control: Optional[str] = None) -> Dic
     """The numbers of ``samples``. ``control`` ("fp8"): judge instead the
     reference computed in that precision, in the program's place, on the
     same inputs (the configuration's control)."""
-    import contextlib
-
     import torch
 
-    from eyebench.reference import image, model
-    from eyebench.reference.weights import make_weights
+    from eyebench.reference import image
 
-    model.configure_precision()
-    cfg = config["model"]
+    arch = architecture.of(config)
+    model = config["model"]
     served = {"bf16": torch.bfloat16, "f32": torch.float32}[config["weights"]]
-    params = make_weights(cfg, config["weights_seed"], device, served)
-    size = 4 * cfg["vit_img_size"]
+    params = []  # the weights, made when a sample first needs the reference
     worst: Dict[str, float] = {}
 
     def keep(name: str, value: float) -> None:
         worst[name] = max(worst.get(name, 0.0), float(value))
 
     done = {}  # (photo, focal, precision) -> the reference's inverse depth
-    unread = [0]  # FOV-estimated images the reference clamps whole
+    unread = [0]  # images without a focal length that the reference clamps whole
 
     def reference(photo, rgb, f35, precision=None):
         key = (photo.path, f35, precision)
         if key not in done:
-            h, w = rgb.shape[:2]
-            x = image.preprocess(rgb, size, device)
-            with model.computed_in(precision) if precision else contextlib.nullcontext():
-                inv, _fov = model.inverse_depth(cfg, params, x, [image.f_norm(f35, w, h)])
-            done[key] = inv[0]
+            if not params:
+                params.append(arch.make_weights(model, config["weights_seed"], device, served))
+            done[key] = arch.reference(model, params[0], rgb, f35, device, precision)
         return done[key]
 
     for sample in samples:
@@ -112,8 +112,8 @@ def compare(samples, config: dict, device, control: Optional[str] = None) -> Dic
         if sample[0] == "png":
             _kind, path, photo = sample
             rgb, f35 = image.decode(photo.path)
-            ref = image.depth_map(reference(photo, rgb, f35), *rgb.shape[:2]).cpu().numpy()
-            got = (_png_pixels(path) if control is None else image.depth_map(
+            ref = arch.depth_map(reference(photo, rgb, f35), *rgb.shape[:2]).cpu().numpy()
+            got = (_png_pixels(path) if control is None else arch.depth_map(
                 reference(photo, rgb, f35, control), *rgb.shape[:2]).cpu().numpy())
             if got.shape != ref.shape:
                 keep("png_mean_abs", 255.0)
@@ -135,7 +135,7 @@ def compare(samples, config: dict, device, control: Optional[str] = None) -> Dic
                                                                        for k in POOLS]:
                     keep(name, np.inf)
                 continue
-            if f35 is None:
+            if f35 is None and arch.has_fov:
                 free = (ref > lo) & (ref < hi)
                 if free.any():
                     keep("fov_gap", abs(np.median(got[free] / ref[free]) - 1.0))
@@ -148,7 +148,8 @@ def compare(samples, config: dict, device, control: Optional[str] = None) -> Dic
                 pr = _pool(ref, k)
                 keep(f"inv_pool{k}_gap", np.abs(_pool(got, k) - pr).mean() / np.abs(pr).mean())
     del params, done
-    if any(s[0] == "grid" and any(f is None for _p, f in s[2]) for s in samples):
+    if arch.has_fov and any(s[0] == "grid" and any(f is None for _p, f in s[2])
+                            for s in samples):
         worst["fov_unread"] = float(unread[0])
     return worst
 

@@ -2,11 +2,16 @@
 peaks, and the roofline bounds of the forward's attention and 3x3
 convolutions, all worked out from the model's shapes.
 
-The ledger is a frozen copy of the port's (``flops.py``, itself the JAX
-package's term for term): dot-product work only, 2 * M * N * K per GEMM,
-of the logical forward (the head's deconv and conv as published, the
-pyramid unpadded), with the fixed pyramid resamples. It counts the same
-work whatever implements it.
+The Depth Pro functions (``model_flops``, ``attention_calls``,
+``conv3x3_calls``, ``policy_dtypes``) are a frozen copy of the port's
+(``flops.py``, itself the JAX package's term for term): dot-product work
+only, 2 * M * N * K per GEMM, of the logical forward (the head's deconv
+and conv as published, the pyramid unpadded), with the fixed pyramid
+resamples. It counts the same work whatever implements it. The readers
+reach them through the architecture (``eyebench/architectures/depth_pro.py``),
+as they reach another architecture's ledger; the peaks, ``bound_s``,
+``attention_bound_s``, ``conv3x3_bound_s`` and ``window_mfu`` depend on no
+model's shapes and serve every architecture.
 
 Roofline bound of a kernel call: the larger of its bytes over the HBM rate
 (each input byte read once, each output byte written once) and its FLOPs
@@ -18,6 +23,8 @@ tensor-core product per product, so a share of this bound cannot pass 100%.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+from eyebench.harness import architecture
 
 # published dense rates of the NVIDIA H100 SXM (data sheet, 700 W), by the
 # exact name torch.cuda.get_device_name gives: other H100s are slower
@@ -194,11 +201,13 @@ def conv3x3_bound_s(calls, kind: str) -> float:
 
 def window_mfu(run) -> Optional[float]:
     """The percent of the card's dense bf16 peak that the logical FLOPs of
-    a run's forwards (``run.window.forwards``: photos, FOV head ran) make
-    over its window; None off a card the table knows."""
+    a run's forwards (``run.window.forwards``: photos, variant), as the
+    configuration's architecture counts them, make over its window; None
+    off a card the table knows."""
     p = peak(run.kind)
     if p is None or not run.window.forwards:
         return None
+    arch = architecture.of(run.config)
     m = run.config["model"]
-    flops = sum(model_flops(m, n, fov)["total"] for n, fov in run.window.forwards)
+    flops = sum(arch.forward_flops(m, n, variant) for n, variant in run.window.forwards)
     return 100.0 * flops / run.window_s / p["bf16"]

@@ -5,15 +5,21 @@
 
 From the root of a checkout. The cell is an entry of ``workloads`` in
 ``BENCHMARK.json``; everything it needs is found by name: its
-configuration file (``configs``' ``file``), its traffic mix
+configuration file (``configs``' ``file``), the architecture that file
+names (``"architecture"``, ``depth_pro`` where it names none:
+``eyebench/architectures/<name>.py`` builds the program's session and
+gives the reference, the clamps and the FLOP ledger; see
+``eyebench/harness/architecture.py``), its traffic mix
 ``eyebench/traffic/<traffic>.json`` and the generator module that mix
 names, its limits ``eyebench/limits/<cell>.json``, and a reader
-``eyebench/metrics/<metric>.py`` for every metric the cell reports.
+``eyebench/metrics/<metric>.py`` for every metric the cell reports. An
+architecture with no file ends the run with exit 2 and no result.
 
 A run: make the seeded photo pool (before the set-up clock), set up the
-program (weights made on the card from the configuration's weights seed,
-the cell's programs warmed), drive the traffic for ``--seconds``, read the memory peak, free
-the program, compare a seeded sample of its outputs with the plain
+program (the architecture's session on weights made on the card from the
+configuration's weights seed, the cell's programs warmed), drive the
+traffic for ``--seconds``, read the memory peak, free the program,
+compare a seeded sample of its outputs with the architecture's plain
 reference, and print one JSON line: with ``--trace 0`` the cell's
 end-to-end metrics, with ``--trace 1`` (the window under the profiler) its
 per-layer metrics, the device's busy time and a breakdown. The numbers
@@ -212,6 +218,13 @@ def main(argv=None) -> int:
     ctrl = config["control"] if args.control else {}
     policy = ctrl.get("policy", config["dtype"])
     cache_dirs()
+
+    from eyebench.harness import architecture
+
+    try:
+        architecture.of(config)
+    except architecture.UnknownArchitecture as e:
+        fail(f"config {centry['name']!r}: {e}")
 
     import torch
 

@@ -116,7 +116,7 @@ def test_reference_matches_the_port_at_f32():
     widths on the CPU, float32 on both sides, the same weights and image."""
     import torch
 
-    from eyebench.harness.cell import model_config
+    from eyebench.harness import architecture
     from eyebench.reference import model
     from eyebench.reference.weights import make_weights
     from matrix_eyes_tpu_torch.models import depth_pro
@@ -126,7 +126,7 @@ def test_reference_matches_the_port_at_f32():
     img = torch.rand(2, 512, 512, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1
     ref, ref_fov = model.inverse_depth(cfg, params, img, [None, 0.8])
     got, got_fov = depth_pro.forward_with_mixed_fnorm(
-        model_config({"model": cfg}), params, img, torch.tensor([1.0, 0.8]),
+        architecture.of({}).model_config({"model": cfg}), params, img, torch.tensor([1.0, 0.8]),
         torch.tensor([False, True]))
     np.testing.assert_allclose(got_fov.numpy(), ref_fov.numpy(), rtol=1e-4)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-4, atol=1e-6 * ref.max().item())

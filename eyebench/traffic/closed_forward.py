@@ -15,6 +15,7 @@ from __future__ import annotations
 import random
 import time
 
+from eyebench.harness import architecture
 from eyebench.harness.cell import Context, Window, seeded_session
 from eyebench.harness.stats import Reservoir
 
@@ -87,8 +88,9 @@ class Cell:
 
     def samples(self):
         """[("grid", (B, S, S) inverse depth, [(photo, focal passed)], the
-        forward's clamp)]."""
-        return [("grid", inv, [(self.ctx.photos[i], f) for i, f in zip(idx, focal)], (1e-4, 1e4))
+        architecture's clamp of the forward)]."""
+        clamp = architecture.of(self.ctx.config).clamps["forward"]
+        return [("grid", inv, [(self.ctx.photos[i], f) for i, f in zip(idx, focal)], clamp)
                 for fov in (False, True) for inv, idx, focal in self.kept[fov].items]
 
     def close(self) -> None:

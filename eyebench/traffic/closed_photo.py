@@ -17,6 +17,7 @@ import os
 import random
 import time
 
+from eyebench.harness import architecture
 from eyebench.harness.cell import Context, Window, seeded_session
 from eyebench.harness.stats import Reservoir
 
@@ -88,14 +89,15 @@ class Cell:
                       forwards=forwards)
 
     def samples(self):
-        """[("png", output path, photo)] and [("grid", its depth map, ...)]
-        of the kept outputs."""
+        """[("png", output path, photo)] and [("grid", its depth map, ...,
+        the architecture's clamp of a depth map)] of the kept outputs."""
+        clamp = architecture.of(self.ctx.config).clamps["depth_map"]
         out = []
         for slot, i in enumerate(self.kept.items):
             photo = self.ctx.photos[i]
             out.append((self.ctx.mix.get("check", "png"), self._kept_path(slot), photo))
             out.append(("grid", self.grids[slot].cpu().numpy()[None], [(photo, photo.focal_mm)],
-                        (1.0 / 250.0, 1.0 / 0.1)))
+                        clamp))
         return out
 
     def close(self) -> None:
