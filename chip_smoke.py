@@ -173,7 +173,16 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    3.35 TB/s and the chain's time; then one ``fwd_mixed_b4`` forward of
    DEPTH_PRO under the mixed policy three times through the graph cache
    (eager, capture, replay), each counted: 72 gelu and 144 scaled_residual
-   launches, by shape, with ``F.gelu`` made to raise inside the forward.
+   launches, by shape, with ``F.gelu`` made to raise inside the forward;
+20. Depth Anything V2 Large (``config.DAV2_LARGE``, seeded random weights,
+   bf16): the K/V path the attention library reports at each case of
+   ``KV_PATH_CASES``, then ``MatrixEyes.inverse_depth_batch`` over eight
+   synthetic 1920x1080 frames three times (eager, capture, replay), each
+   counted from 0: 24 attention launches at (8, 2443, 16, 64) on the
+   streamed K/V ring, the DPT head's 20 conv3x3 launches by shape
+   (``DAV2_CONVS``; phase 3 holds each shape against its plain version), 24
+   gelu and 48 scaled_residual launches, a finite (8, 518, 924) result,
+   the replay equal to the eager call bit for bit.
 
 Phases 4-16 and 18 run with the graph cache on, its default: a program's first
 call with a signature runs eagerly, the second runs eagerly once more and
@@ -282,6 +291,8 @@ ATTENTION_SHAPES = [  # (B, N, H, D, dtype, n_valid)
     (1, 577, 16, 64, "f16", None),     # image ViT under --dtype f16
     (1, 577, 16, 64, "f16", 500),      # the same, keys past n_valid masked
     (3, 70, 2, 8, "f16", None),        # TINY heads (CUDA cores), ragged N
+    (8, 2443, 16, 64, "bf16", None),   # DAv2, eight 1080p frames: the streamed K/V ring
+    (1, 1814, 16, 64, "bf16", None),   # DAv2, one 12 MP photo (518x686, a 37x49 grid)
 ]
 # per-shard attention shapes of the sharded meshes: (B, N, H, D, dtype, n_valid)
 PER_SHARD_ATTENTION = [
@@ -339,6 +350,8 @@ VIT_ELEMENTWISE_SHAPES = [
     ("scaled_residual", (35, 577, 1024), ("f32", "f16", "f16"), True),     # --dtype f16
     ("scaled_residual", (3, 7, 16), ("bf16", "bf16", "bf16"), False),  # no f32 residual
     ("scaled_residual", (5, 3, 24), ("f16", "bf16", "f32"), False),   # mixed dtypes, ragged rows
+    ("gelu", (8, 2443, 4096), ("bf16",), True),    # DAv2, eight 1080p frames
+    ("scaled_residual", (8, 2443, 1024), ("f32", "bf16", "bf16"), True),  # the same
 ]
 # (B, H, W, Cin, Cout, dtype, relu_in, n_skips, bias, launches per DEPTH_PRO
 # forward or None): every distinct conv of the forward (4 projections, 18
@@ -378,6 +391,42 @@ CONV_SHAPES = [(1, H, W, cin, cout, dt, relu_in, n_skips, bias, launches)
     (4, 96, 96, 256, 256, "bf16", True, 2, True, None),    # and the 96^2 RCU
     (4, 768, 768, 256, 256, "f32", True, 2, True, None),   # the hot shape of four, --dtype f32
     (15, 768, 768, 256, 256, "bf16", True, 0, True, None),  # past 2^31 elements (64-bit offsets)
+]
+# Depth Anything V2 Large's DPT head on a batch of eight 1920x1080 frames
+# (518x924 in, a 37x66 patch grid; levels 148x264, 74x132, 37x66, 19x33):
+# (H, W, Cin, Cout, relu_in, n_skips, bias, launches per forward), checked
+# by phase 20. Their CONV_SHAPES rows carry no launches: phases 4-5 hold
+# DEPTH_PRO's forward to that column.
+DAV2_BATCH = 8
+DAV2_CONVS = [
+    (148, 264, 256, 256, False, 0, False, 1),   # layer1_rn
+    (74, 132, 512, 256, False, 0, False, 1),    # layer2_rn
+    (37, 66, 1024, 256, False, 0, False, 1),    # layer3_rn
+    (19, 33, 1024, 256, False, 0, False, 1),    # layer4_rn
+    (148, 264, 256, 256, True, 0, True, 2),     # refinenet1's units, conv1
+    (148, 264, 256, 256, True, 2, True, 1),     # resConfUnit1's conv2 + the skip input
+    (148, 264, 256, 256, True, 1, True, 1),     # resConfUnit2's conv2
+    (74, 132, 256, 256, True, 0, True, 2),      # refinenet2
+    (74, 132, 256, 256, True, 2, True, 1),
+    (74, 132, 256, 256, True, 1, True, 1),
+    (37, 66, 256, 256, True, 0, True, 2),       # refinenet3
+    (37, 66, 256, 256, True, 2, True, 1),
+    (37, 66, 256, 256, True, 1, True, 1),
+    (19, 33, 256, 256, True, 0, True, 1),       # refinenet4: resConfUnit2 alone
+    (19, 33, 256, 256, True, 1, True, 1),
+    (296, 528, 256, 128, False, 0, True, 1),    # output_conv1
+    (518, 924, 128, 32, False, 0, True, 1),     # output_conv2's 3x3
+]
+CONV_SHAPES += [(DAV2_BATCH, H, W, cin, cout, "bf16", relu_in, n_skips, bias, None)
+                for H, W, cin, cout, relu_in, n_skips, bias, _n in DAV2_CONVS]
+# (keys, head dim, dtype, the K/V path the attention library reports)
+KV_PATH_CASES = [
+    (577, 64, "bf16", "resident"),    # Depth Pro's ViTs
+    (2443, 64, "bf16", "streamed"),   # Depth Anything V2 at 1080p
+    (640, 64, "bf16", "resident"), (641, 64, "bf16", "streamed"),
+    (1536, 32, "f16", "resident"), (1537, 32, "f16", "streamed"),
+    (577, 64, "f32", "streamed"),     # the 3xTF32 kernel's rings
+    (70, 8, "bf16", "cuda_cores"),
 ]
 
 
@@ -1875,17 +1924,23 @@ def _mesh_expectations(cfg, data: int, model: int) -> dict:
     """attention_qkv's launches by shape on each rank of a (data, model)
     mesh at one photo: the patch ViT on ceil(35 / data) patches, the image
     and FOV ViTs on the one image, each with num_heads / model heads."""
+    import torch
+
+    from matrix_eyes_tpu_torch.ops.flash_attention import kv_path
+
     h = cfg.num_heads // model
     n, d = cfg.seq_len, cfg.head_dim
-    return {str((-(-35 // data), n, h, d, "bfloat16")): cfg.depth,
-            str((1, n, h, d, "bfloat16")): cfg.depth, str((1, n, h, d, "float32")): cfg.depth}
+    bf, f32 = kv_path(n, d, torch.bfloat16), kv_path(n, d, torch.float32)
+    return {str((-(-35 // data), n, h, d, "bfloat16", bf)): cfg.depth,
+            str((1, n, h, d, "bfloat16", bf)): cfg.depth,
+            str((1, n, h, d, "float32", f32)): cfg.depth}
 
 
 def _rank_summary(phase_tag: str, r: dict) -> str:
     calls = {k: (v["calls"], v["bytes"]) for k, v in r["report"]["collectives"].items()}
     return (f"{phase_tag} rank {r['rank']} mesh {r['mesh'][0]}x{r['mesh'][1]} on {r['device']}: "
             f"launches attention_qkv {r['kernels']['attention_qkv']} conv3x3 "
-            f"{r['kernels']['conv3x3']}; attention by (B, N, H, D, dtype) "
+            f"{r['kernels']['conv3x3']}; attention by (B, N, H, D, dtype, path) "
             f"{r['kernels']['attention_by_shape']}; conv3x3 by N {r['kernels']['conv3x3_by_batch']}"
             f"; collectives (calls, bytes) {calls}; patch rows {r['report']['patch_rows_per_rank']}"
             f"; shard {r['shard_s']:.2f} s; forward walls s {[round(w, 3) for w in r['walls']]}")
@@ -2706,6 +2761,95 @@ def phase_vit_elementwise(dev) -> dict:
     return {"rows": rows, "fwd_mixed_b4": counts[0]}
 
 
+def phase_dav2(dev) -> dict:
+    """Depth Anything V2 Large on the card: the library's K/V path at
+    ``KV_PATH_CASES``, then ``MatrixEyes.inverse_depth_batch`` over
+    ``DAV2_BATCH`` synthetic 1920x1080 frames three times (eager, capture,
+    replay), each counted from 0. Returns the first call's launches
+    ({kernel: launches})."""
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch import aot, api
+    from matrix_eyes_tpu_torch.config import DAV2_LARGE
+    from matrix_eyes_tpu_torch.models.init import init_params
+    from matrix_eyes_tpu_torch.ops import nn
+    from matrix_eyes_tpu_torch.ops.flash_attention import kv_path
+    from matrix_eyes_tpu_torch.pt.convert import place_params
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    paths = [(n, d, dt, kv_path(n, d, dtypes[dt]), want) for n, d, dt, want in KV_PATH_CASES]
+    print(f"[20] attention K/V path by (keys, D, dtype): "
+          f"{[(n, d, dt, got) for n, d, dt, got, _w in paths]}")
+    require(all(got == want for *_k, got, want in paths),
+            f"the library's K/V paths {paths} differ from KV_PATH_CASES")
+
+    cfg = DAV2_LARGE
+    canonical = init_params(cfg, torch.Generator(device=dev).manual_seed(20), dev, torch.float32)
+    params = place_params(canonical, dev, torch.bfloat16)
+    del canonical
+
+    def answer(_path, dtype, device, **_kw):
+        require(dtype == torch.bfloat16, f"DAv2 weights asked for in {dtype}")
+        return cfg, params
+
+    real_load = api.load_checkpoint
+    api.load_checkpoint = answer
+    try:
+        me = api.MatrixEyes("random weights", dtype="bf16", device=dev, cfg=cfg)
+    finally:
+        api.load_checkpoint = real_load
+    rng = np.random.RandomState(20)
+    frames = [rng.randint(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(DAV2_BATCH)]
+    h, w = cfg.input_hw(1080, 1920)
+    n = (h // cfg.patch_size) * (w // cfg.patch_size) + 1
+    want_attn = {(DAV2_BATCH, n, cfg.num_heads, cfg.head_dim, "bfloat16", "streamed"): cfg.depth}
+    want_conv = {(DAV2_BATCH, H, W, cin, cout, torch.bfloat16, relu_in, n_skips, bias): k
+                 for H, W, cin, cout, relu_in, n_skips, bias, k in DAV2_CONVS}
+    outs, runs = [], []
+    for _ in range(3):  # eager, capture, replay
+        nn.gelu_.launches = nn.scaled_residual.launches = 0
+
+        def call():
+            from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+
+            inv = me.inverse_depth_batch(frames)
+            return inv, dict(attention_qkv.launches_by_shape)
+
+        (inv, attn), counts, conv = counted_run(call)
+        outs.append(inv)
+        runs.append({"counts": counts, "attention_by_shape": attn, "conv3x3_by_shape": conv,
+                     "gelu": nn.gelu_.launches, "scaled_residual": nn.scaled_residual.launches,
+                     "mode": aot.cache().modes[-1]})
+    for r in runs:
+        print(f"[20] dav2 inverse_depth_batch x{DAV2_BATCH} {r['mode']}: launches {r['counts']}, "
+              f"gelu {r['gelu']}, scaled_residual {r['scaled_residual']}; attention by "
+              f"(B, N, H, D, dtype, path) {r['attention_by_shape']}; conv3x3 by shape "
+              f"{len(r['conv3x3_by_shape'])} shapes, {sum(r['conv3x3_by_shape'].values())} "
+              f"launches")
+    modes = [r["mode"] for r in runs]
+    require(modes == [(f"dav2_fwd_b{DAV2_BATCH}", m) for m in ("eager", "capture", "replay")],
+            f"dav2 forward modes {modes}, expected eager, capture, replay")
+    for r in runs:
+        require(r["attention_by_shape"] == want_attn,
+                f"dav2 attention launches {r['attention_by_shape']}, expected {want_attn}")
+        require(r["conv3x3_by_shape"] == want_conv,
+                f"dav2 conv3x3 launches by shape {r['conv3x3_by_shape']}, expected {want_conv}")
+        require((r["gelu"], r["scaled_residual"]) == (cfg.depth, 2 * cfg.depth),
+                f"dav2 launched gelu/scaled_residual {r['gelu']}/{r['scaled_residual']}, "
+                f"expected {cfg.depth}/{2 * cfg.depth}")
+    require(outs[0].shape == (DAV2_BATCH, h, w) and outs[0].dtype == np.float32,
+            f"dav2 inverse depth {outs[0].shape} {outs[0].dtype}, expected "
+            f"{(DAV2_BATCH, h, w)} float32")
+    require(bool(np.isfinite(outs[0]).all()), "dav2: non-finite inverse depth")
+    require(np.array_equal(outs[0], outs[2]), "dav2: the replay differs from the eager call")
+    print(f"[20] dav2 ({DAV2_BATCH}, {h}, {w}) f32, range [{outs[0].min():.4g}, "
+          f"{outs[0].max():.4g}], replay == eager bit for bit")
+    del me, params
+    torch.cuda.empty_cache()
+    return runs[0]["counts"]
+
+
 def main() -> int:
     import torch
 
@@ -2760,6 +2904,7 @@ def main() -> int:
     finally:
         os.remove(weights)
     vit_elementwise = phase_vit_elementwise(dev)
+    by_path["dav2_frames_b8"] = phase_dav2(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 

@@ -56,11 +56,13 @@ CPU tensors run ``fn`` eagerly (every kernel wrapper sends them to its
 plain version), and so does every call under ``MATRIX_EYES_AOT=off``, the
 JAX package's switch, read on every call: the kernels run in both modes,
 the switch chooses only how they are launched. ``MATRIX_EYES_AOT_LOG=1``
-prints one line per capture, as the JAX package prints one per miss. A
-failed capture raises with the program's name; nothing falls back to the
-eager path behind it. A graph cannot be serialized, so the JAX package's
-on-disk cache (``MATRIX_EYES_AOT_CACHE``) has no counterpart: the port's
-persistent artefacts are ``_build/`` and the weight caches.
+prints one line per capture, as the JAX package prints one per miss, with
+the capture's attention launches by shape and K/V path (resident or
+streamed). A failed capture raises with the program's name; nothing falls
+back to the eager path behind it. A graph cannot be serialized, so the
+JAX package's on-disk cache (``MATRIX_EYES_AOT_CACHE``) has no
+counterpart: the port's persistent artefacts are ``_build/`` and the
+weight caches.
 
 Every call records a span of the program's trace (``timings.trace``) while
 spans are recorded: ``dispatch.eager``, ``dispatch.capture`` or
@@ -195,6 +197,17 @@ class _LaunchCounters:
                 getattr(owner, attr).extend(d)
             elif d:
                 setattr(owner, attr, getattr(owner, attr) + d)
+
+
+def _attention_paths(delta: list) -> str:
+    """A capture's attention launches by (B, N, heads, D, dtype, K/V path),
+    for its ``MATRIX_EYES_AOT_LOG`` line."""
+    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+
+    for (owner, attr), d in zip(_LaunchCounters._fields(), delta):
+        if owner is attention_qkv and attr == "launches_by_shape" and d:
+            return "; attention " + ", ".join(f"{n} x {k}" for k, n in sorted(d.items()))
+    return ""
 
 
 # -- constants a graph reads -------------------------------------------------
@@ -520,8 +533,8 @@ class GraphCache:
             self.captured.append((name, seconds, pool_bytes))
         if _log_enabled():
             print(f"aot: CAPTURE {name} in {seconds * 1e3:.1f} ms, graph pool "
-                  f"+{pool_bytes / 2**20:.1f} MiB ({len(self._live)} live)",
-                  file=sys.stderr, flush=True)
+                  f"+{pool_bytes / 2**20:.1f} MiB ({len(self._live)} live)"
+                  f"{_attention_paths(delta)}", file=sys.stderr, flush=True)
         return result
 
     def _forget(self, key) -> None:

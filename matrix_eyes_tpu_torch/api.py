@@ -19,6 +19,12 @@ While the port records spans (``timings``), ``process``, ``depth_map`` and
 ``inverse_depth_batch`` each record one (``api.<method>``), the root of a
 request when called from outside, and ``inverse_depth_batch`` its copy of
 the result to the host (``api.readback``).
+
+A Depth Anything V2 checkpoint (``depth_anything_v2_vitl.pth``, told
+apart by its keys) runs the same entries: relative inverse depth at the
+model's input grid (518 x 924 for a 1920 x 1080 photo), focal lengths
+accepted and ignored, depth maps normalised over their range unclamped,
+meshes refused (no metric depth), one device only.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.output.depthmap import DepthMap, ImageOutputFormat, VertexMode
 from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
 from matrix_eyes_tpu_torch.pipeline import (
+    check_mesh,
     extract_depth_batch,
     forward_batch,
+    forward_groups,
     forward_photo,
     preprocess_image,
 )
@@ -91,7 +99,7 @@ class MatrixEyes:
 
     def _preprocess(self, src: SourceImage, mesh=None) -> torch.Tensor:
         device = mesh.device if mesh is not None else self.runtime.resolved_device()
-        return preprocess_image(src.rgb, self.cfg.img_size, self.runtime.image_dtype(), device)
+        return preprocess_image(src.rgb, self.cfg, self.runtime.image_dtype(), device)
 
     def _params_for_mesh(self, mesh):
         """The session's parameters cut for ``mesh`` (``parallel.shard_params``),
@@ -99,6 +107,7 @@ class MatrixEyes:
         rank's device are paid once."""
         if mesh is None:
             return self.params
+        check_mesh(self.cfg, mesh)
         from matrix_eyes_tpu_torch.parallel.sharding import shard_params
 
         if mesh not in self._sharded:
@@ -110,7 +119,7 @@ class MatrixEyes:
         with timings.trace("api.depth_map"):
             src = self._load(image, focal_length_35mm)
             inv = forward_photo(self.cfg, self.params, self._preprocess(src), src.f_norm())
-            return DepthMap.new(inv, src.original_size)
+            return DepthMap.new(inv, src.original_size, self.cfg.metric)
 
     def inverse_depth(self, image: Image,
                       focal_length_35mm: Optional[float] = None) -> np.ndarray:
@@ -125,7 +134,9 @@ class MatrixEyes:
         sizes may differ). ``focal_length_35mm``: None (each image's EXIF;
         the FOV head fills the gaps), one value for all, or one per image
         (None where unknown). Returns the model's (B, S, S) inverse depth,
-        f32, clamped to [1e-4, 1e4] as the forward clamps it.
+        f32, clamped to [1e-4, 1e4] as the forward clamps it; Depth
+        Anything V2's (B, h, w) relative inverse depth at its input grid,
+        the images' sizes giving one grid.
 
         ``mesh`` (``parallel.make_mesh``, inside ``parallel.launch``): every
         rank calls this with the same images; the batch is split over the
@@ -151,6 +162,9 @@ class MatrixEyes:
         """One forward over the sources and ``pad`` copies of the last one's
         preprocessed image: (B + pad, S, S) inverse depth on the device."""
         imgs = [self._preprocess(s, mesh) for s in sources]
+        if len({im.shape for im in imgs}) > 1:
+            raise ValueError(f"a batch runs at one input size; these images give "
+                             f"{sorted({tuple(im.shape[1:3]) for im in imgs})}")
         f_norms = [s.f_norm() for s in sources]
         params = self._params_for_mesh(mesh)
         with patch_sharded(mesh):
@@ -160,14 +174,14 @@ class MatrixEyes:
     def depth_maps(self, sources: Sequence[SourceImage],
                    pad_to_pow2: bool = False) -> List[DepthMap]:
         """One batched forward over pre-loaded SourceImages; one DepthMap on
-        the device per image. ``pad_to_pow2`` pads the batch to the next
-        power of two with copies of the last preprocessed image (their
-        outputs are dropped), so a server sees few batch shapes."""
-        if not sources:
-            return []
-        n = len(sources)
-        inv = self._forward(sources, (1 << (n - 1).bit_length()) - n if pad_to_pow2 else 0)
-        return [DepthMap.new(inv[i], s.original_size) for i, s in enumerate(sources)]
+        the device per image, one forward per input size (Depth Anything
+        V2's follows the photo's aspect). ``pad_to_pow2`` pads each forward
+        to the next power of two with copies of its last preprocessed image
+        (their outputs are dropped), so a server sees few batch shapes."""
+        inv = forward_groups(self.cfg, self.params, [self._preprocess(s) for s in sources],
+                             [s.f_norm() for s in sources], pad_to_pow2=pad_to_pow2)
+        return [DepthMap.new(inv[i], s.original_size, self.cfg.metric)
+                for i, s in enumerate(sources)]
 
     # -- full pipeline -----------------------------------------------------
 

@@ -303,6 +303,7 @@ def _load_sharded(args: Args, runtime, parts, mesh):
     from matrix_eyes_tpu_torch import timings
     from matrix_eyes_tpu_torch.parallel.collectives import broadcast
     from matrix_eyes_tpu_torch.parallel.sharding import shard_params
+    from matrix_eyes_tpu_torch.pipeline import check_mesh
     from matrix_eyes_tpu_torch.pt.loader import load_checkpoint
 
     def load(convert: bool):
@@ -319,6 +320,7 @@ def _load_sharded(args: Args, runtime, parts, mesh):
         cfg, params = loaded if loaded is not None else load(False)
     else:
         cfg, params = load(False)
+    check_mesh(cfg, mesh)
     with timings.span("shard parameters"):
         return cfg, shard_params(params, mesh, num_heads=cfg.num_heads)
 

@@ -7,12 +7,22 @@ f32, bf16 and f16, and the weight policies int8 (``quantize_int8``) and
 mixed (``mixed_bf16``), both with a bf16 ViT. The port runs on the CUDA
 card unless the caller asks for the CPU (``device="cpu"``); the default
 dtype is bf16 on CUDA and f32 on the CPU.
+
+The port's second architecture, Depth Anything V2 (``DepthAnythingConfig``:
+``DAV2_LARGE`` at the published sizes and ``DAV2_TINY`` for the CPU), has
+no counterpart in the JAX package. What the two architectures do
+differently the configuration says (class attributes and ``input_hw``):
+its name, its parameter parts, whether its output is metric depth (a
+clamped depth map, meshes) and whether it runs on a device mesh.
+``config_to_dict``/``config_from_dict`` carry either through the weight
+caches' JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+from typing import Any, ClassVar, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,9 +46,24 @@ class ModelConfig:
     # carry the ViT residual stream in f32 when the compute dtype is narrower
     vit_f32_residual: bool = True
 
+    architecture: ClassVar[str] = "depth_pro"
+    parts: ClassVar[Tuple[str, ...]] = ("encoder", "decoder", "head", "fov")
+    # metric inverse depth (clamped; meshes), and the forward on a device mesh
+    metric: ClassVar[bool] = True
+    runs_on_mesh: ClassVar[bool] = True
+
     @property
     def img_size(self) -> int:
         return self.vit_img_size * 4
+
+    def input_hw(self, height: int, width: int) -> Tuple[int, int]:
+        """(h, w) of the model's input for a height x width photo: the
+        square ``img_size``."""
+        return self.img_size, self.img_size
+
+    def load_parts(self, requested: Optional[Sequence[str]] = None) -> Tuple[str, ...]:
+        """The parts to load: ``requested`` (all four where None)."""
+        return self.parts if requested is None else tuple(requested)
 
     @property
     def tokens_per_side(self) -> int:
@@ -92,6 +117,136 @@ TINY = ModelConfig(
     head_last_dims=(4, 1),
     highres_block_ids=(0, 1),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthAnythingConfig:
+    """Depth Anything V2 (Yang et al., arXiv:2406.09414), defaults the
+    published Large (``depth_anything_v2/dpt.py``, ``model_configs['vitl']``):
+    a DINOv2 ViT-L/14 whose 37 x 37 position embedding (``input_size`` 518
+    over patch 14) is interpolated to the image's grid, four taps after
+    blocks ``taps`` each through the final LayerNorm, and a DPT head:
+    1x1 projections to ``out_channels``, reassembly at 4x, 2x, 1x and 1/2x
+    of the patch grid, 3x3 convs to ``features``, four fusion blocks that
+    upsample bilinearly (``align_corners=True``), then 3x3 to
+    ``head_widths[0]``, bilinear to the input's size, 3x3 to
+    ``head_widths[1]``, ReLU, 1x1 to one channel, ReLU. The output is
+    relative inverse depth (affine-invariant disparity), not metric."""
+
+    input_size: int = 518
+    patch_size: int = 14
+    depth: int = 24
+    embed_dim: int = 1024
+    num_heads: int = 16
+    mlp_ratio: int = 4
+    layer_norm_eps: float = 1e-6
+    taps: Tuple[int, int, int, int] = (4, 11, 17, 23)
+    features: int = 256
+    out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    head_widths: Tuple[int, int] = (128, 32)
+    # dpt.py's DPTHead options: BatchNorm in the fusion units, the CLS token
+    # read into the projections; both False in the published models
+    use_bn: bool = False
+    use_clstoken: bool = False
+    vit_f32_residual: bool = True
+
+    architecture: ClassVar[str] = "depth_anything_v2"
+    # the published module names: the DINOv2 and the DPT head
+    parts: ClassVar[Tuple[str, ...]] = ("pretrained", "depth_head")
+    metric: ClassVar[bool] = False
+    runs_on_mesh: ClassVar[bool] = False
+
+    @property
+    def img_size(self) -> int:
+        """The shorter side of the model's input (the longer one follows
+        the photo's aspect, ``input_hw``)."""
+        return self.input_size
+
+    def input_hw(self, height: int, width: int) -> Tuple[int, int]:
+        """(h, w) of the model's input for a height x width photo:
+        ``util/transform.py``'s ``Resize(input_size, input_size,
+        keep_aspect_ratio=True, ensure_multiple_of=patch,
+        resize_method='lower_bound')``: one scale for both sides, the
+        larger of input_size / side, then each side rounded (half to even)
+        to a multiple of the patch, rounded up where that falls below
+        input_size."""
+        m, size = self.patch_size, self.input_size
+        scale = max(size / height, size / width)
+
+        def fit(x: float) -> int:
+            y = int(round(x / m)) * m
+            return math.ceil(x / m) * m if y < size else y
+
+        return fit(scale * height), fit(scale * width)
+
+    def load_parts(self, requested: Optional[Sequence[str]] = None) -> Tuple[str, ...]:
+        """Both parts, whatever Depth Pro's names were asked for."""
+        return self.parts
+
+    @property
+    def pos_grid(self) -> int:
+        """Side of the position embedding's grid of patches."""
+        return self.input_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        """Tokens of the position embedding (the grid and the CLS token)."""
+        return self.pos_grid * self.pos_grid + 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    def __post_init__(self):
+        if self.input_size % self.patch_size != 0:
+            raise ValueError("input_size must be a multiple of patch_size")
+        if self.embed_dim % self.num_heads != 0:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        if len(self.taps) != 4 or list(self.taps) != sorted(set(self.taps)) or not (
+                0 <= self.taps[0] and self.taps[-1] < self.depth):
+            raise ValueError(f"taps must be four ascending block ids below depth, "
+                             f"got {self.taps}")
+        if len(self.out_channels) != 4 or len(self.head_widths) != 2:
+            raise ValueError("out_channels takes four widths and head_widths two")
+        if self.use_bn or self.use_clstoken:
+            raise ValueError("use_bn and use_clstoken are not implemented (the published "
+                             "models set both False)")
+
+
+DAV2_LARGE = DepthAnythingConfig()
+
+DAV2_TINY = DepthAnythingConfig(
+    input_size=70,
+    patch_size=14,
+    depth=4,
+    embed_dim=32,
+    num_heads=2,
+    taps=(0, 1, 2, 3),
+    features=16,
+    out_channels=(8, 16, 32, 32),
+    head_widths=(8, 8),
+)
+
+AnyConfig = Union[ModelConfig, DepthAnythingConfig]
+_CLASSES = {cls.architecture: cls for cls in (ModelConfig, DepthAnythingConfig)}
+
+
+def config_to_dict(cfg: AnyConfig) -> Dict[str, Any]:
+    """The configuration's fields; Depth Anything's also name the
+    architecture (a Depth Pro dict has no ``architecture`` key, as the
+    weight caches have always written it)."""
+    d = dataclasses.asdict(cfg)
+    if cfg.architecture != ModelConfig.architecture:
+        d["architecture"] = cfg.architecture
+    return d
+
+
+def config_from_dict(d: Dict[str, Any]) -> AnyConfig:
+    """The inverse of ``config_to_dict``; lists become tuples."""
+    d = dict(d)
+    cls = _CLASSES[d.pop("architecture", ModelConfig.architecture)]
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+
 
 _DTYPE_NAMES = {
     "f32": torch.float32,

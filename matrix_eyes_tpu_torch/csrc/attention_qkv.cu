@@ -1053,6 +1053,17 @@ extern "C" int me_attention_prepare() {
   return 0;
 }
 
+// How a launch at head dim D over n_valid keys reads a head's K and V: 0 on
+// the CUDA cores (D = 8), 1 whole in shared memory (bf16 and f16 where they
+// fit: kv_resident), 2 through the ring (bf16 and f16 beyond that, and the
+// f32 3xTF32 kernel at every length). -1 for a D no kernel takes.
+extern "C" int me_attention_kv_path(int D, int n_valid, int dtype) {
+  if (D == 8) return 0;
+  if (D != 32 && D != 64) return -1;
+  if (dtype == 0) return 2;
+  return (D == 64 ? kv_resident<64>(n_valid) : kv_resident<32>(n_valid)) ? 1 : 2;
+}
+
 // Dynamic shared memory of one tensor-core launch at head dim D over
 // n_valid keys (for reports): bf16 and f16 (dtype 1, 2) K and V whole where they fit,
 // else the ring; f32 (dtype 0) the 3xTF32 kernel's two query tiles and

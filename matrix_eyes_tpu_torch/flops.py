@@ -21,6 +21,12 @@ Two deliberate properties:
 * Per-stage ledger, so the whole-model number reconciles against per-stage
   device times (patch ViT, decoder, head).
 
+Depth Anything V2's ledger (``dav2_flops``, the port's own: the JAX
+package has no such model) counts the same way, at the input's grid: the
+ViT at its token count, the DPT head's projections, transposed convs and
+convs as published (the fusion blocks' 1x1 after the upsampling), the
+bilinear and bicubic resamplings left out.
+
 ``device_peak_flops`` looks the card's name (``torch.cuda.get_device_name``)
 up in ``_PEAKS`` by exact equality and returns its published dense bf16
 peak; MFU is reported against that whatever the ``--dtype`` policy (an f32
@@ -31,7 +37,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from matrix_eyes_tpu_torch.config import ModelConfig, RuntimeConfig
+from matrix_eyes_tpu_torch.config import DepthAnythingConfig, ModelConfig, RuntimeConfig
 
 
 def _split_tiles(size: int, patch: int, overlap_div: int) -> int:
@@ -157,6 +163,45 @@ def model_flops(cfg: ModelConfig, batch: int = 1,
     total = sum(ledger.values()) * batch
     ledger = {k: v * batch for k, v in ledger.items()}
     ledger["total"] = total
+    return ledger
+
+
+def dav2_flops(cfg: DepthAnythingConfig, height: int, width: int,
+               batch: int = 1) -> Dict[str, float]:
+    """Per-stage logical FLOPs of one Depth Anything V2 forward of ``batch``
+    inputs of height x width (multiples of the patch): ``vit`` (patch embed
+    and blocks at 1 + gh * gw tokens), ``reassemble`` (the four 1x1
+    projections, the 4x4/s4 and 2x2/s2 transposed convs, the 3x3/s2 conv),
+    ``fusion`` (the four ``layer{i}_rn`` 3x3 convs, the residual conv units,
+    the 1x1 ``out_conv`` at each upsampled size) and ``head`` (3x3, 3x3,
+    1x1); ``total`` sums them."""
+    p = cfg.patch_size
+    gh, gw = height // p, width // p
+    N, D, M = gh * gw + 1, cfg.embed_dim, cfg.mlp_ratio
+    oc, F = cfg.out_channels, cfg.features
+    h1, h2 = cfg.head_widths
+    ledger: Dict[str, float] = {}
+    ledger["vit"] = (2.0 * gh * gw * (p * p * 3) * D
+                     + cfg.depth * ((8 + 4 * M) * N * D * D + 4 * N * N * D))
+    lh, lw = (gh + 1) // 2, (gw + 1) // 2  # the 3x3/s2, pad 1
+    sizes = [(4 * gh, 4 * gw), (2 * gh, 2 * gw), (gh, gw), (lh, lw)]
+    ledger["reassemble"] = (sum(_conv(gh, gw, D, c) for c in oc)
+                            + _conv(gh, gw, oc[0], oc[0], 4)     # 4x4/s4: each pixel once
+                            + _conv(gh, gw, oc[1], oc[1], 2)     # 2x2/s2
+                            + _conv(lh, lw, oc[3], oc[3], 3))    # 3x3/s2
+    rcu = lambda h, w: 2 * _conv(h, w, F, F, 3)  # noqa: E731
+    fusion = sum(_conv(h, w, c, F, 3) for (h, w), c in zip(sizes, oc))
+    # the size each fusion block (refinenet1..4) upsamples to
+    targets = [(2 * sizes[0][0], 2 * sizes[0][1])] + sizes[:3]
+    for i in range(4):
+        h, w = sizes[i]
+        fusion += rcu(h, w) * (1 if i == 3 else 2) + _conv(*targets[i], F, F)
+    ledger["fusion"] = fusion
+    fh, fw = targets[0]
+    ledger["head"] = (_conv(fh, fw, F, h1, 3) + _conv(height, width, h1, h2, 3)
+                      + _conv(height, width, h2, 1))
+    ledger = {k: v * batch for k, v in ledger.items()}
+    ledger["total"] = sum(ledger.values())
     return ledger
 
 

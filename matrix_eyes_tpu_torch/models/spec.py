@@ -4,13 +4,19 @@ lists whose leaves are shape tuples.
 A jax-free copy of ``matrix_eyes_tpu/models/spec.py`` (same tree, same
 leaf order, same layouts). It is shared by ``models.init`` (random
 initialisation) and ``pt.convert`` (checkpoint validation).
+
+Depth Anything V2 (the port's own) has two parts under the published
+module names, ``pretrained`` (the ViT, ``vit_spec`` at patch 14) and
+``depth_head`` (the DPT head, ``dav2_head_spec``), in the same layouts: linears and
+1x1 convs ``(in, out)``, convs HWIO, k x k/sk transposed convs
+``(in, k * k * out)`` in (row phase, column phase, out) order.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from matrix_eyes_tpu_torch.config import ModelConfig
+from matrix_eyes_tpu_torch.config import AnyConfig, DepthAnythingConfig, ModelConfig
 
 
 def vit_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -117,15 +123,35 @@ def fov_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def param_spec(cfg: ModelConfig, include_fov: bool = True) -> Dict[str, Any]:
-    spec = {
-        "encoder": encoder_spec(cfg),
-        "decoder": decoder_spec(cfg),
-        "head": head_spec(cfg),
+def dav2_head_spec(cfg: DepthAnythingConfig) -> Dict[str, Any]:
+    """The DPT head (``dpt.py``'s ``DPTHead``): ``refinenets[i]`` is the
+    published ``refinenet{i + 1}``; ``refinenets[3]``'s ``resnet1`` is in the
+    published state dict though its forward never runs it."""
+    D, F = cfg.embed_dim, cfg.features
+    oc = tuple(cfg.out_channels)
+    h1, h2 = cfg.head_widths
+    return {
+        "projects": [{"w": (D, c), "b": (c,)} for c in oc],
+        "resize0": {"w": (oc[0], 16 * oc[0]), "b": (oc[0],)},
+        "resize1": {"w": (oc[1], 4 * oc[1]), "b": (oc[1],)},
+        "resize3": {"w": (3, 3, oc[3], oc[3]), "b": (oc[3],)},
+        "layer_rn": [{"w": (3, 3, c, F)} for c in oc],
+        "refinenets": [{"resnet1": _rcu_spec(F), "resnet2": _rcu_spec(F), "out_conv_w": (F, F),
+                        "out_conv_b": (F,)} for _ in range(4)],
+        "output_conv1": {"w": (3, 3, F, h1), "b": (h1,)},
+        "output_conv2": {"w": (3, 3, h1, h2), "b": (h2,)},
+        "output_conv3": {"w": (h2, 1), "b": (1,)},
     }
-    if include_fov:
-        spec["fov"] = fov_spec(cfg)
-    return spec
+
+
+_PART_SPECS = {"encoder": encoder_spec, "decoder": decoder_spec, "head": head_spec,
+               "fov": fov_spec, "pretrained": vit_spec, "depth_head": dav2_head_spec}
+
+
+def param_spec(cfg: AnyConfig, include_fov: bool = True) -> Dict[str, Any]:
+    """The tree of the configuration's parts (``cfg.parts``), Depth Pro's
+    FOV part where ``include_fov``."""
+    return {part: _PART_SPECS[part](cfg) for part in cfg.parts if include_fov or part != "fov"}
 
 
 def tree_map(fn, tree, path=()):

@@ -25,15 +25,26 @@ attention kernel on its ``num_heads / k`` heads with no collective; proj
 and fc2 run on this rank's rows and their f32 partial products are
 all-reduced before the bias. Grouped parameters outside the mesh they were
 cut for raise, as in the JAX package.
+
+Depth Anything V2's DINOv2 (``forward_taps``, no counterpart in the JAX
+package) shares ``block_forward``; its patch is 14, its position
+embedding is interpolated to the image's grid as ``dinov2.py`` does
+(``interpolate_pos_embed``, once per grid: ``grid_pos_embed``), and it
+returns four taps, each through the final LayerNorm, without the CLS
+token.
 """
 
 from __future__ import annotations
 
+import math
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from matrix_eyes_tpu_torch.config import ModelConfig
+from matrix_eyes_tpu_torch import aot
+from matrix_eyes_tpu_torch.config import DepthAnythingConfig, ModelConfig
 from matrix_eyes_tpu_torch.ops import nn
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
 from matrix_eyes_tpu_torch.ops.quant import dequantize_weight, is_quantized_blocks, qlinear
@@ -145,3 +156,79 @@ def forward_features(cfg: ModelConfig, params: Params, x: torch.Tensor,
     final = nn.layer_norm(tokens, params["norm"]["scale"], params["norm"]["bias"],
                           cfg.layer_norm_eps)
     return final.to(out_dt), inters
+
+
+# dinov2.py's interpolate_offset: the scale factors are (g + 0.1) / s
+POS_EMBED_OFFSET = 0.1
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+    """The (1, 1 + gh * gw, C) position embedding of a gh x gw patch grid
+    from the (1, 1 + s * s, C) published one, as ``dinov2.py``'s
+    ``interpolate_pos_encoding``: unchanged where the grid is the published
+    square, else bicubic (a = -0.75, no antialias, as ``dinov2.py``'s
+    ``interpolate_antialias`` False) in f32 at the scale factors
+    (g + ``POS_EMBED_OFFSET``) / s, which set the sampling positions (not
+    g / s), then cast back. It depends on the grid alone."""
+    n = pos_embed.shape[1] - 1
+    if gh * gw == n and gh == gw:
+        return pos_embed
+    s = int(math.sqrt(n))
+    c = pos_embed.shape[-1]
+    pe = pos_embed.float()
+    off = POS_EMBED_OFFSET
+    grid = F.interpolate(pe[:, 1:].reshape(1, s, s, c).permute(0, 3, 1, 2),
+                         scale_factor=((gh + off) / s, (gw + off) / s), mode="bicubic",
+                         antialias=False)
+    if tuple(grid.shape[-2:]) != (gh, gw):
+        raise ValueError(f"position embedding interpolated to {tuple(grid.shape[-2:])}, "
+                         f"expected {(gh, gw)}")
+    grid = grid.permute(0, 2, 3, 1).reshape(1, gh * gw, c)
+    return torch.cat([pe[:, :1], grid], dim=1).to(pos_embed.dtype)
+
+
+# (id of the position embedding, grid) -> its interpolation, kept while the
+# embedding lives
+_GRID_POS_EMBEDS: Dict[tuple, torch.Tensor] = {}
+
+
+def grid_pos_embed(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+    """``interpolate_pos_embed`` computed once per embedding and grid: it
+    depends on nothing else, and PyTorch's bicubic kernel is slow at this
+    shape (one thread an output position, 2442 of them at 37 x 66, each
+    looping over the 1024 channels). A graph captured over a forward reads
+    the kept tensor (``aot.keep_alive``)."""
+    key = (id(pos_embed), gh, gw)
+    pe = _GRID_POS_EMBEDS.get(key)
+    if pe is None:
+        pe = interpolate_pos_embed(pos_embed, gh, gw)
+        _GRID_POS_EMBEDS[key] = pe
+        weakref.finalize(pos_embed, _GRID_POS_EMBEDS.pop, key, None)
+    return aot.keep_alive(pe)
+
+
+def forward_taps(cfg: DepthAnythingConfig, params: Params, x: torch.Tensor
+                 ) -> List[torch.Tensor]:
+    """x: (B, H, W, 3) NHWC, H and W multiples of the patch. Returns the
+    (B, H/p, W/p, C) patch tokens after each block of ``cfg.taps``, each
+    through the final LayerNorm, the CLS token dropped, in the compute
+    dtype (``get_intermediate_layers(..., norm=True)``)."""
+    B, H, W, _ = x.shape
+    gh, gw = H // cfg.patch_size, W // cfg.patch_size
+    tokens = nn.patch_embed(x, params["patch_embed"]["w"], params["patch_embed"]["b"],
+                            cfg.patch_size)
+    cls = params["cls_token"].to(tokens.dtype).expand(B, 1, tokens.shape[2])
+    tokens = torch.cat([cls, tokens], dim=1)
+    tokens = tokens + grid_pos_embed(params["pos_embed"], gh, gw).to(tokens.dtype)
+    out_dt = tokens.dtype
+    if cfg.vit_f32_residual and tokens.element_size() < 4:
+        tokens = tokens.float()
+    blocks = params["blocks"]
+    taps: List[torch.Tensor] = []
+    for i in range(cfg.depth):
+        tokens = block_forward(cfg, {k: v[i] for k, v in blocks.items()}, tokens)
+        if i in cfg.taps:
+            normed = nn.layer_norm(tokens, params["norm"]["scale"], params["norm"]["bias"],
+                                   cfg.layer_norm_eps)
+            taps.append(normed[:, 1:].to(out_dt).reshape(B, gh, gw, -1))
+    return taps

@@ -54,7 +54,10 @@ _SIGNATURES = {
     ]),
     "me_attention_scratch_floats": (ctypes.c_longlong, [ctypes.c_int] * 6),  # B N H D n_valid dtype
     "me_attention_prepare": (ctypes.c_int, []),
+    "me_attention_kv_path": (ctypes.c_int, [ctypes.c_int] * 3),  # D n_valid dtype
 }
+# me_attention_kv_path's answers: how a launch reads a head's keys and values
+_KV_PATHS = ("cuda_cores", "resident", "streamed")
 
 
 def prepare() -> None:
@@ -73,12 +76,23 @@ def _scratch(lib, B: int, N: int, H: int, D: int, n_valid: int, code: int,
     return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
 
 
+def kv_path(n_valid: int, D: int, dtype: torch.dtype) -> str:
+    """How the kernel reads a head's keys and values, as the library
+    chooses (``me_attention_kv_path``; it builds and loads the library):
+    ``resident`` (bf16 and f16 at D = 32 and 64, K and V whole in shared
+    memory: up to 640 keys at D = 64, 1536 at D = 32), ``streamed`` (their
+    ring beyond that, and the f32 3xTF32 kernel's rings at every length) or
+    ``cuda_cores`` (D = 8)."""
+    lib = _build.load("attention_qkv", _SIGNATURES)
+    return _KV_PATHS[lib.me_attention_kv_path(D, n_valid, _build.dtype_code(dtype))]
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
 __all__ = ["attention_qkv", "attention_qkv_plain", "attention_flash", "attention_flash_plain",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "kv_path"]
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -118,17 +132,26 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                                   num_heads, D,
                                   n_valid, float(scale) * _LOG2E, code, stream)
     _build.check_launch(rc, "attention_qkv")
-    attention_qkv.launches += 1
-    attention_qkv.launches_by_dtype[qkv.dtype] += 1
-    attention_qkv.launches_by_batch[B] += 1
-    attention_qkv.launches_by_shape[(B, N, num_heads, D, str(qkv.dtype).split(".")[-1])] += 1
+    count_launch(B, N, num_heads, D, qkv.dtype,
+                 _KV_PATHS[lib.me_attention_kv_path(D, n_valid, code)])
     return out
+
+
+def count_launch(B: int, N: int, H: int, D: int, dtype: torch.dtype, path: str) -> None:
+    """Count one launch of ``attention_qkv``'s kernel: in all, by dtype, by
+    batch, and by (B, N, heads, D, dtype, K/V path), the path as the
+    library reports it (``kv_path``)."""
+    attention_qkv.launches += 1
+    attention_qkv.launches_by_dtype[dtype] += 1
+    attention_qkv.launches_by_batch[B] += 1
+    attention_qkv.launches_by_shape[(B, N, H, D, str(dtype).split(".")[-1], path)] += 1
 
 
 attention_qkv.launches = 0
 attention_qkv.launches_by_dtype = collections.Counter()
 attention_qkv.launches_by_batch = collections.Counter()  # B = 35 per photo in the patch ViT
-# (B, N, heads, D, dtype): under tensor parallelism a rank runs num_heads / model heads
+# (B, N, heads, D, dtype, path): under tensor parallelism a rank runs num_heads / model
+# heads; the path is ``kv_path``'s
 attention_qkv.launches_by_shape = collections.Counter()
 
 

@@ -213,14 +213,30 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Transposed conv, kernel 2x2, stride 2, as matmul + depth-to-space:
-    ``out[2i+di, 2j+dj, o] = sum_c x[i, j, c] * w[c, (di*2+dj)*Co + o]``."""
+def deconv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """Transposed conv, kernel k x k, stride k (no overlap), as matmul +
+    depth-to-space: ``out[k*i+di, k*j+dj, o] = sum_c x[i, j, c] *
+    w[c, (di*k+dj)*Co + o]``; w is (in, k * k * out)."""
     B, H, W, _ = x.shape
-    co = w.shape[1] // 4
-    y = linear(x, w, None if b is None else b.repeat(4))
-    y = y.reshape(B, H, W, 2, 2, co).permute(0, 1, 3, 2, 4, 5)
-    return y.reshape(B, 2 * H, 2 * W, co)
+    co = w.shape[1] // (k * k)
+    y = linear(x, w, None if b is None else b.repeat(k * k))
+    y = y.reshape(B, H, W, k, k, co).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(B, k * H, k * W, co)
+
+
+def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed conv, kernel 2x2, stride 2 (``deconv`` at k = 2):
+    ``out[2i+di, 2j+dj, o] = sum_c x[i, j, c] * w[c, (di*2+dj)*Co + o]``."""
+    return deconv(x, w, b, 2)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resampling of NHWC ``x`` to (out_h, out_w) with
+    ``align_corners=True`` (``F.interpolate``, PyTorch's kernel, on the
+    channels-last view: no transpose is copied), in ``x.dtype``."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=True)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def patch_embed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, patch: int) -> torch.Tensor:

@@ -25,6 +25,12 @@ forward and chunk k's writers do not wait out that forward. Save policy:
   on the host (``output/mesh.py``, ``output/writers.py``); vertex colours
   come from the source file Lanczos3-resized to the grid on the device.
 
+A relative depth map (``DepthMap.new(..., metric=False)``, Depth Anything
+V2's affine-invariant inverse depth) is not clamped to metric depths: the
+depth map and the stereogram normalise it over its range as they do a
+clamped one, and a mesh, which needs metric depth, raises
+``ReconstructionError``.
+
 The renders run through the CUDA-graph cache (``aot.call_cached``) under the
 JAX package's names, ``render_depthmap_grid`` and ``render_depthmap``; the
 copies to the host stay outside the graphs.
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 
 from matrix_eyes_tpu_torch import aot, timings
-from matrix_eyes_tpu_torch.errors import OutputError
+from matrix_eyes_tpu_torch.errors import OutputError, ReconstructionError
 from matrix_eyes_tpu_torch.ops.colormap import map_depth
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
 from matrix_eyes_tpu_torch.ops.stereogram import (
@@ -121,13 +127,20 @@ def readback(t: torch.Tensor) -> Callable[[], np.ndarray]:
 
 @dataclass
 class DepthMap:
-    """Clamped inverse-depth grid + original image size (width, height)."""
+    """Clamped inverse-depth grid + original image size (width, height);
+    ``metric`` False for relative inverse depth, which is not clamped."""
 
-    data: torch.Tensor  # (H, W) f32, clamped to [1/250, 1/0.1]
+    data: torch.Tensor  # (H, W) f32, clamped to [1/250, 1/0.1] where metric
     original_size: Tuple[int, int]
+    metric: bool = True
 
     @classmethod
-    def new(cls, inverse_depth: torch.Tensor, original_size: Tuple[int, int]) -> "DepthMap":
+    def new(cls, inverse_depth: torch.Tensor, original_size: Tuple[int, int],
+            metric: bool = True) -> "DepthMap":
+        """Metric inverse depth clamped; relative (affine-invariant) inverse
+        depth f32 as it is (``metric`` False, the configuration's)."""
+        if not metric:
+            return cls(data=inverse_depth.float(), original_size=original_size, metric=False)
         return cls(data=clamp_inverse_depth(inverse_depth), original_size=original_size)
 
     def to_numpy(self) -> np.ndarray:
@@ -213,6 +226,9 @@ class DepthMap:
                       vertex_mode: VertexMode) -> Callable[[], None]:
         """The grid (and, for vertex colours, the source resized to it)
         cross to the host; the writer triangulates and serialises there."""
+        if not self.metric:
+            raise ReconstructionError("a mesh needs metric depth and a focal length; this "
+                                      "model gives relative inverse depth, no metric depth")
         from matrix_eyes_tpu_torch.output import writers
         from matrix_eyes_tpu_torch.output.mesh import build_mesh
 

@@ -17,6 +17,14 @@ batch of N. On a device mesh the forwards go through the mesh's own cache
 (``aot.mesh_cache``): over NCCL every rank captures its forward with its
 collectives and replays it in lock step with the other ranks; a gloo mesh
 runs them eagerly.
+
+Depth Anything V2 (``config.DepthAnythingConfig``) takes the same paths
+with its own preprocess and forward: ``dav2_preprocess`` (a bicubic resize
+to the model's lower-bound size in multiples of 14 keeping the aspect,
+``input_hw``, and ImageNet normalisation) and ``dav2_fwd_b{N}``
+(``models.depth_anything.forward``, for one photo too). Its output is not
+metric (``cfg.metric``): focal lengths are accepted and ignored and the
+depth map is not clamped; and it refuses a device mesh (``check_mesh``).
 """
 
 from __future__ import annotations
@@ -29,13 +37,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from matrix_eyes_tpu_torch import aot, timings
 from matrix_eyes_tpu_torch.errors import MatrixEyesError, ReconstructionError
 from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.progress import SplitProgressListener
-from matrix_eyes_tpu_torch.config import ModelConfig, RuntimeConfig, configure_precision
-from matrix_eyes_tpu_torch.models import depth_pro
+from matrix_eyes_tpu_torch.config import AnyConfig, ModelConfig, RuntimeConfig, configure_precision
+from matrix_eyes_tpu_torch.models import depth_anything, depth_pro
 from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
 from matrix_eyes_tpu_torch.output.depthmap import (
@@ -45,23 +54,92 @@ from matrix_eyes_tpu_torch.output.depthmap import (
 )
 
 
-def _preprocess(x: torch.Tensor, img_size: int, dtype: torch.dtype) -> torch.Tensor:
-    x = to_u8(resize_lanczos3(x.float(), img_size, img_size)).float()
+def _preprocess(x: torch.Tensor, size: Tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """Depth Pro's: Lanczos3 resize to the model resolution, round back to
+    u8 (the reference resizes the u8 image), scale to [0, 1], normalise
+    with mean = std = 0.5."""
+    x = to_u8(resize_lanczos3(x.float(), *size)).float()
     x = (x / 255.0 - 0.5) / 0.5
     return x[None].to(dtype)
 
 
-def preprocess_image(rgb_u8: np.ndarray, img_size: int, dtype: torch.dtype,
-                     device) -> torch.Tensor:
-    """Lanczos3 resize to the model resolution, round back to u8 (the
-    reference resizes the u8 image), scale to [0, 1], normalise with
-    mean = std = 0.5. ``rgb_u8``: (H, W, 3) u8, numpy or a tensor already
-    on ``device`` (the server's upload). Returns (1, S, S, 3) NHWC. The
-    photo's copy to the device runs before the ``preprocess`` program."""
+# ImageNet's mean and std (depth_anything_v2/dpt.py, image2tensor)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _preprocess_dav2(x: torch.Tensor, size: Tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
+    """Depth Anything V2's: scale to [0, 1], bicubic (a = -0.75,
+    half-pixel centres, no antialias; ``F.interpolate``, where the
+    published code runs ``cv2.INTER_CUBIC``), ImageNet normalisation."""
+    x = F.interpolate((x.float() / 255.0).permute(2, 0, 1)[None], size=size, mode="bicubic",
+                      align_corners=False).permute(0, 2, 3, 1)
+    x = torch.stack([(x[..., c] - IMAGENET_MEAN[c]) / IMAGENET_STD[c] for c in range(3)], dim=-1)
+    return x.to(dtype)
+
+
+# each architecture's preprocess program: (name, function of (photo, (h, w), dtype))
+_PREPROCESS = {ModelConfig.architecture: ("preprocess", _preprocess),
+               "depth_anything_v2": ("dav2_preprocess", _preprocess_dav2)}
+
+
+def preprocess_image(rgb_u8: np.ndarray, model, dtype: torch.dtype, device) -> torch.Tensor:
+    """The model's input of one photo, ``rgb_u8``: (H, W, 3) u8, numpy or
+    a tensor already on ``device`` (the server's upload). ``model``: the
+    configuration, which sizes the input (``input_hw``) and names its
+    program, or an int, the side of Depth Pro's square input (the JAX
+    package's ``img_size``). Returns (1, h, w, 3) NHWC. The photo's copy to
+    the device (the span ``pipeline.upload``) runs before the program."""
     with timings.trace("pipeline.upload"):
         x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
         x = x.to(device)
-    return aot.call_cached("preprocess", _preprocess, (x, img_size, dtype))
+    if isinstance(model, int):
+        arch, size = ModelConfig.architecture, (model, model)
+    else:
+        arch, size = model.architecture, model.input_hw(x.shape[0], x.shape[1])
+    name, fn = _PREPROCESS[arch]
+    return aot.call_cached(name, fn, (x, size, dtype))
+
+
+def check_mesh(cfg: AnyConfig, mesh) -> None:
+    """Raise where ``mesh`` is a device mesh and the architecture runs on
+    one device only."""
+    if mesh is not None and not cfg.runs_on_mesh:
+        raise ReconstructionError(f"{cfg.architecture} runs on one device: a device mesh "
+                                  "(--devices) is not supported")
+
+
+def _forward_relative(cfg, params: Dict[str, Any], img: torch.Tensor, mesh) -> torch.Tensor:
+    """Depth Anything V2's (B, h, w) relative inverse depth (``dav2_fwd_b{B}``)."""
+    check_mesh(cfg, mesh)
+    return aot.call_cached(f"dav2_fwd_b{img.shape[0]}",
+                           functools.partial(depth_anything.forward, cfg), (params, img),
+                           repr(cfg))
+
+
+def forward_groups(cfg: AnyConfig, params: Dict[str, Any], imgs: Sequence[torch.Tensor],
+                   f_norms: Sequence[Optional[float]], pad_to: Optional[int] = None,
+                   pad_to_pow2: bool = False, mesh=None) -> List[torch.Tensor]:
+    """The inverse depth of preprocessed (1, h, w, 3) images, one (h, w)
+    tensor an image in their order: one ``forward_batch`` per input size
+    (Depth Pro's inputs share one; Depth Anything V2's follow the photo's
+    aspect), each padded with copies of its last image and focal length to
+    ``pad_to`` images, or to the next power of two."""
+    out: List[Optional[torch.Tensor]] = [None] * len(imgs)
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for i, im in enumerate(imgs):
+        groups.setdefault(tuple(im.shape), []).append(i)
+    for idx in groups.values():
+        stack = [imgs[i] for i in idx]
+        fs = [f_norms[i] for i in idx]
+        n = len(stack)
+        pad = (max(pad_to - n, 0) if pad_to else
+               (1 << (n - 1).bit_length()) - n if pad_to_pow2 else 0)
+        inv = forward_batch(cfg, params, torch.cat(stack + stack[-1:] * pad),
+                            fs + fs[-1:] * pad, mesh)
+        for j, i in enumerate(idx):
+            out[i] = inv[j]
+    return out
 
 
 def _program(mesh, name: str, fn, args: tuple, salt: str):
@@ -78,8 +156,11 @@ def forward_photo(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
     """The (S, S) inverse depth of one preprocessed photo: the known-focal
     forward (``fwd_fnorm``), or without a focal length the FOV head's
     (``fwd_fov``). The focal length goes to the device before the
-    program."""
+    program. An architecture without metric depth ignores the focal
+    length (``dav2_fwd_b1``)."""
     with timings.trace("pipeline.forward"):
+        if not cfg.metric:
+            return _forward_relative(cfg, params, img, mesh)[0]
         if f_norm is not None:
             f = torch.tensor([f_norm], dtype=torch.float32, device=img.device)
             return _program(mesh, "fwd_fnorm",
@@ -96,8 +177,12 @@ def forward_batch(cfg: ModelConfig, params: Dict[str, Any], img: torch.Tensor,
     """One forward over an image stack: the known-focal forward when every
     f_norm is known (``fwd_fnorm_b{N}``), else the mixed one
     (``fwd_mixed_b{N}``: the FOV head fills the images whose f_norm is
-    None). Returns the (B, S, S) inverse depth on the device."""
+    None). Returns the (B, S, S) inverse depth on the device. An
+    architecture without metric depth ignores the focal lengths
+    (``dav2_fwd_b{N}``)."""
     with timings.trace("pipeline.forward"):
+        if not cfg.metric:
+            return _forward_relative(cfg, params, img, mesh)
         return _forward_batch(cfg, params, img, f_norms, mesh)
 
 
@@ -194,6 +279,7 @@ def extract_depth(
     ``parallel.shard_params`` parameters): rank 0 decodes and preprocesses
     and broadcasts the image and its focal length, every rank runs the
     sharded forward, and rank 0 alone writes the output."""
+    check_mesh(cfg, mesh)
     runtime = runtime or RuntimeConfig()
     device = mesh.device if mesh is not None else runtime.resolved_device()
     dtype = runtime.image_dtype()
@@ -220,7 +306,7 @@ def extract_depth(
         pl_net.update_message("extracting depth")
         try:
             with timings.span("preprocess (device)"):
-                img = preprocess_image(src.rgb, cfg.img_size, dtype, device)
+                img = preprocess_image(src.rgb, cfg, dtype, device)
             f_norm = src.f_norm()
         except Exception as err:
             if mesh is not None:
@@ -236,7 +322,7 @@ def extract_depth(
         with timings.span("model forward"), patch_sharded(mesh):
             inverse_depth = forward_photo(cfg, params, img, f_norm, mesh)
             original_size = src.original_size if lead else (cfg.img_size, cfg.img_size)
-            depth_map = DepthMap.new(inverse_depth, original_size)
+            depth_map = DepthMap.new(inverse_depth, original_size, cfg.metric)
             _wait_for_forward(device)
     except Exception as err:
         raise _stage_error("Failed to process image", err, "model") from err
@@ -300,6 +386,7 @@ def extract_depth_batch(
     divides ``batch_size``), rank 0 alone writes and reports failures."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    check_mesh(cfg, mesh)
     runtime = runtime or RuntimeConfig()
     device = mesh.device if mesh is not None else runtime.resolved_device()
     dtype = runtime.image_dtype()
@@ -386,17 +473,15 @@ def extract_depth_batch(
             shared = mesh is None
             try:
                 with timings.span("preprocess (device)"):
-                    imgs = [preprocess_image(s.rgb, cfg.img_size, dtype, device)
-                            for _job, s in live]
-                    pad = batch_size - len(live)
-                    img = torch.cat(imgs + imgs[-1:] * pad)
+                    imgs = [preprocess_image(s.rgb, cfg, dtype, device) for _job, s in live]
                 f_norms = [s.f_norm() for _job, s in live]
-                f_norms += f_norms[-1:] * pad
-                if not shared:
+                if not shared:  # on a mesh, Depth Pro's: one input size
                     shared = True
-                    _share_inputs(mesh, _RUN, img, f_norms, shape, dtype, device)
+                    pad = batch_size - len(live)
+                    _share_inputs(mesh, _RUN, torch.cat(imgs + imgs[-1:] * pad),
+                                  f_norms + f_norms[-1:] * pad, shape, dtype, device)
                 with timings.span("model forward"), patch_sharded(mesh):
-                    inv = forward_batch(cfg, params, img, f_norms, mesh)
+                    inv = forward_groups(cfg, params, imgs, f_norms, batch_size, mesh=mesh)
                     _wait_for_forward(device)
             except Exception as err:
                 if not shared:  # the other ranks wait for this chunk
@@ -409,7 +494,7 @@ def extract_depth_batch(
             outs, writers = [], []
             for i, ((src_path, out_path), s) in enumerate(live):
                 try:
-                    writers.append(DepthMap.new(inv[i], s.original_size).prepare_output(
+                    writers.append(DepthMap.new(inv[i], s.original_size, cfg.metric).prepare_output(
                         out_path, src_path, image_format=image_format, vertex_mode=vertex_mode,
                         resize_scale=resize_scale, amplitude=stereo_amplitude,
                         seed=runtime.seed))

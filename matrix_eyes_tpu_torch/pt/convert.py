@@ -25,6 +25,14 @@ of ``matrix_eyes_tpu/pt/loader.py::load_checkpoint(..., use_caches=False)``:
 
 The FOV part is stored in f32 holding the policy's values (int8 codes stay
 int8): the FOV network runs in f32.
+
+A Depth Anything V2 checkpoint (``depth_anything_v2_vit*.pth``: keys
+``pretrained.*``, the DINOv2, and ``depth_head.*``, the DPT head) is told
+apart by its keys (``infer_config``) and converted to its two parts
+(``DepthAnythingConfig.parts``, ``models.spec.param_spec``) under the
+same layouts (``_convert_vit``, ``_convert_dav2_head``); the
+4x4/s4 transposed conv goes to (in, 16 * out). The policies place it
+alike (its ViT blocks are the bf16 or int8 group; it has no FOV part).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from matrix_eyes_tpu_torch.errors import CheckpointBadShape, CheckpointMissingKeys, LoaderError
-from matrix_eyes_tpu_torch.config import ModelConfig
+from matrix_eyes_tpu_torch.config import DAV2_LARGE, DAV2_TINY, DepthAnythingConfig, ModelConfig
 from matrix_eyes_tpu_torch.models.spec import param_spec, tree_leaves, tree_map
 from matrix_eyes_tpu_torch.ops.mixed import cast_params_mixed
 from matrix_eyes_tpu_torch.ops.quant import quantize_params
@@ -63,6 +71,13 @@ def t_deconv2x2(w: np.ndarray) -> np.ndarray:
     """torch ConvTranspose2d (I, O, 2, 2) -> (I, 4*O), inner order (di, dj, o)."""
     i, o = w.shape[0], w.shape[1]
     return np.ascontiguousarray(w.transpose(0, 2, 3, 1).reshape(i, 4 * o))
+
+
+def t_deconv(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d (I, O, k, k), stride k -> (I, k*k*O), inner
+    order (di, dj, o)."""
+    i, o, k = w.shape[0], w.shape[1], w.shape[2]
+    return np.ascontiguousarray(w.transpose(0, 2, 3, 1).reshape(i, k * k * o))
 
 
 def t_patch_embed(w: np.ndarray) -> np.ndarray:
@@ -214,16 +229,95 @@ def _convert_fov(ks: _KeySpace, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def infer_config(flat: Dict[str, np.ndarray]) -> ModelConfig:
+def _convert_dav2_head(ks: _KeySpace) -> Dict[str, Any]:
+    p = "depth_head"
+
+    def rcu(q):
+        return {"conv1_w": ks.take(f"{q}.conv1.weight", transform=t_conv),
+                "conv1_b": ks.take(f"{q}.conv1.bias"),
+                "conv2_w": ks.take(f"{q}.conv2.weight", transform=t_conv),
+                "conv2_b": ks.take(f"{q}.conv2.bias")}
+
+    refinenets = []
+    for k in range(1, 5):
+        q = f"{p}.scratch.refinenet{k}"
+        refinenets.append({"resnet1": rcu(f"{q}.resConfUnit1"), "resnet2": rcu(f"{q}.resConfUnit2"),
+                           "out_conv_w": ks.take(f"{q}.out_conv.weight", transform=t_conv1x1),
+                           "out_conv_b": ks.take(f"{q}.out_conv.bias")})
+    return {
+        "projects": [{"w": ks.take(f"{p}.projects.{i}.weight", transform=t_conv1x1),
+                      "b": ks.take(f"{p}.projects.{i}.bias")} for i in range(4)],
+        "resize0": {"w": ks.take(f"{p}.resize_layers.0.weight", transform=t_deconv),
+                    "b": ks.take(f"{p}.resize_layers.0.bias")},
+        "resize1": {"w": ks.take(f"{p}.resize_layers.1.weight", transform=t_deconv),
+                    "b": ks.take(f"{p}.resize_layers.1.bias")},
+        "resize3": {"w": ks.take(f"{p}.resize_layers.3.weight", transform=t_conv),
+                    "b": ks.take(f"{p}.resize_layers.3.bias")},
+        "layer_rn": [{"w": ks.take(f"{p}.scratch.layer{i}_rn.weight", transform=t_conv)}
+                     for i in range(1, 5)],
+        "refinenets": refinenets,
+        "output_conv1": {"w": ks.take(f"{p}.scratch.output_conv1.weight", transform=t_conv),
+                         "b": ks.take(f"{p}.scratch.output_conv1.bias")},
+        "output_conv2": {"w": ks.take(f"{p}.scratch.output_conv2.0.weight", transform=t_conv),
+                         "b": ks.take(f"{p}.scratch.output_conv2.0.bias")},
+        "output_conv3": {"w": ks.take(f"{p}.scratch.output_conv2.2.weight", transform=t_conv1x1),
+                         "b": ks.take(f"{p}.scratch.output_conv2.2.bias")},
+    }
+
+
+# the taps by ViT depth of the port's configurations: the published Large's
+# (dpt.py's intermediate_layer_idx['vitl']) and the CPU size's
+_DAV2_TAPS = {cfg.depth: cfg.taps for cfg in (DAV2_LARGE, DAV2_TINY)}
+
+
+def _need(flat: Dict[str, np.ndarray], key: str, *fallbacks: str) -> np.ndarray:
+    for k in (key,) + fallbacks:
+        if k in flat:
+            return flat[k]
+    raise CheckpointMissingKeys([key])
+
+
+def infer_dav2_config(flat: Dict[str, np.ndarray]) -> DepthAnythingConfig:
+    """Depth Anything V2's configuration from its checkpoint's shapes. The
+    taps are not in the shapes: they are the published Large's at its
+    depth, 24 (``dpt.py``), and the CPU size's at its own; another depth
+    (vits, vitb, vitg) is refused. eps is ``dinov2.py``'s."""
+    d = int(_need(flat, "pretrained.cls_token").shape[-1])
+    n_tokens = int(_need(flat, "pretrained.pos_embed").shape[1]) - 1
+    patch = int(_need(flat, "pretrained.patch_embed.proj.weight").shape[-1])
+    depth = 1 + max((int(k.split(".")[2]) for k in flat if k.startswith("pretrained.blocks.")),
+                    default=0)
+    if depth not in _DAV2_TAPS:
+        raise LoaderError(f"a Depth Anything V2 checkpoint with {depth} ViT blocks: the port "
+                          f"runs the Large (24 blocks, depth_anything_v2_vitl.pth)")
+    return DepthAnythingConfig(
+        input_size=int(round(n_tokens ** 0.5)) * patch,
+        patch_size=patch,
+        depth=depth,
+        embed_dim=d,
+        num_heads=d // (64 if d % 64 == 0 else d // 2),
+        mlp_ratio=int(_need(flat, "pretrained.blocks.0.mlp.fc1.weight").shape[0]) // d,
+        taps=_DAV2_TAPS[depth],
+        features=int(_need(flat, "depth_head.scratch.layer1_rn.weight").shape[0]),
+        out_channels=tuple(int(_need(flat, f"depth_head.projects.{i}.weight").shape[0])
+                           for i in range(4)),
+        head_widths=(int(_need(flat, "depth_head.scratch.output_conv1.weight").shape[0]),
+                     int(_need(flat, "depth_head.scratch.output_conv2.0.weight").shape[0])),
+    )
+
+
+def infer_config(flat: Dict[str, np.ndarray]):
     """Derive the ModelConfig from checkpoint tensor shapes. eps and the
     highres block ids are not recoverable from shapes: eps is the DINOv2
     value, the ids scale like the production network's (5, 11) at depth
-    24; the head count assumes head_dim 64 where the width allows it."""
+    24; the head count assumes head_dim 64 where the width allows it. A
+    Depth Anything V2 checkpoint (``pretrained.*`` keys) gives its own
+    configuration (``infer_dav2_config``)."""
+    if "pretrained.cls_token" in flat:
+        return infer_dav2_config(flat)
+
     def need(key: str, *fallbacks: str) -> np.ndarray:
-        for k in (key,) + fallbacks:
-            if k in flat:
-                return flat[k]
-        raise CheckpointMissingKeys([key])
+        return _need(flat, key, *fallbacks)
 
     d = int(need("encoder.patch_encoder.cls_token").shape[-1])
     n_tokens = int(need("encoder.patch_encoder.pos_embed").shape[1]) - 1
@@ -254,15 +348,18 @@ def infer_config(flat: Dict[str, np.ndarray]) -> ModelConfig:
 def convert_state_dict(cfg: ModelConfig, flat: Dict[str, np.ndarray],
                        parts: Sequence[str] = PARTS) -> Dict[str, Any]:
     """Map a flat state dict of numpy arrays to the parameter tree of
-    numpy arrays, validated against ``param_spec``."""
+    numpy arrays, validated against ``param_spec``. For Depth Anything V2
+    ``parts`` is its two, whatever was asked (``cfg.load_parts``)."""
     ks = _KeySpace(flat)
     converters = {
         "encoder": lambda: _convert_encoder(ks, cfg),
         "decoder": lambda: _convert_decoder(ks, cfg),
         "head": lambda: _convert_head(ks),
         "fov": lambda: _convert_fov(ks, cfg),
+        "pretrained": lambda: _convert_vit(ks, "pretrained", cfg),
+        "depth_head": lambda: _convert_dav2_head(ks),
     }
-    params = {part: converters[part]() for part in parts}
+    params = {part: converters[part]() for part in cfg.load_parts(parts)}
     if ks.missing:
         raise CheckpointMissingKeys(ks.missing)
     _check_shapes(cfg, params)

@@ -35,7 +35,6 @@ writes or reads (``<stem>-<part>.npz``, ``.packed*``, ``.mixed.npz``,
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import pickle
@@ -45,7 +44,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from matrix_eyes_tpu_torch import timings
-from matrix_eyes_tpu_torch.config import ModelConfig
+from matrix_eyes_tpu_torch.config import (
+    DepthAnythingConfig,
+    ModelConfig,
+    config_from_dict,
+    config_to_dict,
+)
 from matrix_eyes_tpu_torch.errors import LoaderError
 from matrix_eyes_tpu_torch.models.spec import param_spec, tree_leaves, tree_map
 from matrix_eyes_tpu_torch.ops.quant import QUANT_COMPUTE, QUANT_WEIGHT_ONLY
@@ -164,9 +168,7 @@ def _load_config_cache(path: str) -> ModelConfig:
     with open(path) as f:
         d = json.load(f)
     d.pop("pt_stat", None)
-    for key in ("encoder_feature_dims", "head_last_dims", "highres_block_ids"):
-        d[key] = tuple(d[key])
-    return ModelConfig(**d)
+    return config_from_dict(d)
 
 
 def _write_cache(path: str, tree: Any, what: str) -> None:
@@ -191,7 +193,7 @@ def _purge_caches(checkpoint_path: str) -> None:
     """Remove every cache of the port for ``checkpoint_path`` (all parts and
     kinds, not only those being loaded, which a partial reconversion would
     otherwise leave stamped as fresh). The JAX package's files stay."""
-    for part in PARTS:
+    for part in ModelConfig.parts + DepthAnythingConfig.parts:
         for kind in KINDS:
             try:
                 os.remove(cache_path(checkpoint_path, part, kind))
@@ -254,6 +256,7 @@ def load_checkpoint(checkpoint_path: str, dtype: torch.dtype, device,
             cfg = _load_config_cache(ccache)
         else:
             cfg, canonical = read(parts)
+    parts = cfg.load_parts(parts)
     spec = param_spec(cfg, include_fov="fov" in parts)
 
     out: Dict[str, Any] = {}
@@ -293,7 +296,7 @@ def load_checkpoint(checkpoint_path: str, dtype: torch.dtype, device,
                              f"{kind} cache for '{part}'")
         if convert_checkpoints:
             def write_config():
-                d = dataclasses.asdict(cfg)
+                d = config_to_dict(cfg)
                 d["pt_stat"] = _pt_stat(checkpoint_path)
                 with open(config_cache_path(checkpoint_path), "w") as f:
                     json.dump(d, f, indent=1)

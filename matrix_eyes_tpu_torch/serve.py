@@ -418,7 +418,7 @@ class _Handler(BaseHTTPRequestHandler):
             rt = self.session.runtime
             self._reply_json(200, {
                 "status": "ok",
-                "model": "depth_pro",
+                "model": self.session.cfg.architecture,
                 "img_size": self.session.cfg.img_size,
                 "dtype": str(rt.resolved_dtype()).removeprefix("torch."),
                 # the weight policy on top of the compute dtype

@@ -623,3 +623,45 @@ def test_cli_profile_writes_a_trace(workdir, tmp_path):
     assert any(e.get("name", "").startswith("aten::") for e in events)
     with Image.open(tmp_path / "o.png") as im:
         assert im.size == (200, 300)
+
+
+@pytest.mark.parametrize("n,d,dtype,path", [
+    (577, 64, torch.bfloat16, "resident"),    # Depth Pro's ViTs
+    (2443, 64, torch.bfloat16, "streamed"),   # Depth Anything V2 at 1080p
+    (640, 64, torch.bfloat16, "resident"), (641, 64, torch.bfloat16, "streamed"),
+    (1536, 32, torch.float16, "resident"), (1537, 32, torch.float16, "streamed"),
+    (577, 64, torch.float32, "streamed"),     # the 3xTF32 kernel's rings
+    (70, 8, torch.bfloat16, "cuda_cores")])
+def test_attention_counter_tells_the_kv_path(counters, n, d, dtype, path):
+    """A launch's key names how the kernel read K and V, as the library
+    reports it (``me_attention_kv_path``, card-only: ``chip_smoke.py``
+    holds its answers at these cases): whole in shared memory up to 640
+    keys at D = 64 (1536 at D = 32), else streamed through the ring."""
+    from matrix_eyes_tpu_torch.ops import flash_attention
+
+    assert path in flash_attention._KV_PATHS
+    before = collections.Counter(attention_qkv.launches_by_shape)
+    flash_attention.count_launch(8, n, 16, d, dtype, path)
+    added = collections.Counter(attention_qkv.launches_by_shape) - before
+    assert added == collections.Counter({(8, n, 16, d, str(dtype).split(".")[-1], path): 1})
+
+
+def test_the_capture_log_names_the_kv_path(counters, graphs_on, monkeypatch, capsys):
+    """``MATRIX_EYES_AOT_LOG``'s line of a capture lists its attention
+    launches with their K/V path."""
+    from matrix_eyes_tpu_torch.ops import flash_attention
+
+    monkeypatch.setenv("MATRIX_EYES_AOT_LOG", "1")
+    cache = aot.GraphCache(FakeGraphs())
+
+    def fn(x):
+        for _ in range(24):
+            flash_attention.count_launch(8, 2443, 16, 64, torch.bfloat16, "streamed")
+        return x * 2
+
+    for _ in range(2):
+        cache.call("dav2_fwd_b8", fn, (_X,))
+    err = capsys.readouterr().err
+    line = [x for x in err.splitlines() if x.startswith("aot: CAPTURE dav2_fwd_b8")]
+    assert len(line) == 1
+    assert "attention 24 x (8, 2443, 16, 64, 'bfloat16', 'streamed')" in line[0]

@@ -269,3 +269,52 @@ def test_a_session_records_nothing_when_off(off, session):
     me.process(photos[1], str(d / "off.png"), focal_length_35mm=28.0)
     me.inverse_depth_batch(photos[:1], focal_length_35mm=28.0)
     assert timings.recorded() == []
+
+
+@pytest.fixture(scope="module")
+def dav2_session(tmp_path_factory):
+    """A Depth Anything V2 session on the plain reference's seeded tiny
+    weights, saved under the published key names."""
+    import torch_ref_dav2
+
+    from matrix_eyes_tpu_torch.config import DAV2_TINY as C
+
+    d = tmp_path_factory.mktemp("torch_timings_dav2")
+    ckpt = str(d / "depth_anything_v2_tiny.pth")
+    model = torch_ref_dav2.DepthAnythingV2(
+        features=C.features, out_channels=C.out_channels, img_size=C.input_size,
+        embed_dim=C.embed_dim, depth=C.depth, num_heads=C.num_heads,
+        head_features_2=C.head_widths[1], intermediate_layer_idx=list(C.taps))
+    torch.save(torch_ref_dav2.randomize(model, seed=5).state_dict(), ckpt)
+    rng = np.random.RandomState(6)
+    photos = [rng.randint(0, 256, (96, 160, 3), dtype=np.uint8) for _ in range(2)]
+    return MatrixEyes(ckpt, device="cpu"), photos, d
+
+
+def test_a_depth_anything_batch_records_its_spans_in_one_request(on, dav2_session):
+    """The same spans as Depth Pro's batch, under the architecture's
+    program names: the preprocess per photo, one forward for both."""
+    me, photos, _d = dav2_session
+    me.inverse_depth_batch(photos, focal_length_35mm=[35.0, None])
+    spans = timings.recorded()
+    assert len({s.request for s in spans}) == 1
+    tree = _tree(spans)
+    assert tree.pop("dispatch.eager") == ["api.inverse_depth_batch"] * 2 + ["pipeline.forward"]
+    assert tree == {
+        "api.inverse_depth_batch": [None], "pipeline.upload": ["api.inverse_depth_batch"] * 2,
+        "pipeline.forward": ["api.inverse_depth_batch"],
+        "api.readback": ["api.inverse_depth_batch"]}
+    assert [s.attrs["program"] for s in spans if s.name == "dispatch.eager"] == \
+        ["dav2_preprocess", "dav2_preprocess", "dav2_fwd_b2"]
+
+
+def test_a_depth_anything_photo_records_its_spans(on, dav2_session):
+    me, photos, d = dav2_session
+    src = str(d / "photo.png")
+    Image.fromarray(photos[0]).save(src)
+    me.process(src, str(d / "out.png"))
+    spans = timings.recorded()
+    programs = sorted(s.attrs["program"] for s in spans if s.name.startswith("dispatch."))
+    assert programs == ["dav2_fwd_b1", "dav2_preprocess", "render_depthmap_grid"]
+    assert {"api.process", "api.depth_map", "pipeline.decode", "pipeline.upload",
+            "pipeline.forward", "output.write"} <= {s.name for s in spans}
