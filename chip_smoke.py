@@ -8,11 +8,11 @@ Run from the root of a checkout, on a machine with the card:
 Phases, each a plain call whose failure ends the run with a non-zero exit:
 
 1. environment: versions, the card, its power limit, host encoders;
-2. build the five CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
+2. build the six CUDA libraries from matrix_eyes_tpu_torch/csrc/ (one
    nvcc each, all at once), and print ptxas's registers, spills and the
    dynamic shared memory of the tensor-core kernels, the ViT elementwise
-   kernels' registers, and the threefry kernel's ptxas report and SASS
-   instruction count (``cuobjdump``);
+   and resample kernels' registers, and the threefry kernel's ptxas report
+   and SASS instruction count (``cuobjdump``);
 3. each kernel entry against its plain PyTorch version on the card, at the
    shapes the main path gives it, with errors and warm times, the least
    time the card could take (``bound_ms``: the larger of the bytes over
@@ -181,8 +181,18 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    counted from 0: 24 attention launches at (8, 2443, 16, 64) on the
    streamed K/V ring, the DPT head's 20 conv3x3 launches by shape
    (``DAV2_CONVS``; phase 3 holds each shape against its plain version), 24
-   gelu and 48 scaled_residual launches, a finite (8, 518, 924) result,
-   the replay equal to the eager call bit for bit.
+   gelu and 48 scaled_residual launches, the 5 resize_bilinear launches by
+   shape (``DAV2_RESAMPLES``), a finite (8, 518, 924) result, the replay
+   equal to the eager call bit for bit;
+21. Depth Anything V2's bilinear resampling (``csrc/resample.cu``,
+   ``ops/nn.py::resize_bilinear``) against ``F.interpolate`` (its plain
+   version, ``resize_bilinear_plain``), bit for bit, at ``RESAMPLE_SHAPES``:
+   the five resamplings of a forward over eight 1080p frames, the f32 and
+   f16 builds, channel counts below 16 and not a multiple of 8, a
+   misaligned input, downsampling, one-pixel inputs and outputs, a copy;
+   at the timed shapes the kernel's time by CUDA events and by the
+   profiler, its byte bound at 3.35 TB/s (the input read once, the output
+   written once) and ``F.interpolate``'s time.
 
 Phases 4-16 and 18 run with the graph cache on, its default: a program's first
 call with a signature runs eagerly, the second runs eagerly once more and
@@ -419,6 +429,35 @@ DAV2_CONVS = [
 ]
 CONV_SHAPES += [(DAV2_BATCH, H, W, cin, cout, "bf16", relu_in, n_skips, bias, None)
                 for H, W, cin, cout, relu_in, n_skips, bias, _n in DAV2_CONVS]
+# the forward's bilinear resamplings, (B, H, W, C, out_h, out_w): the four
+# fusion blocks' 2x and the head's to the input's size; phase 20 counts
+# them, phase 21 holds each against F.interpolate
+DAV2_RESAMPLES = [
+    (DAV2_BATCH, 19, 33, 256, 37, 66),
+    (DAV2_BATCH, 37, 66, 256, 74, 132),
+    (DAV2_BATCH, 74, 132, 256, 148, 264),
+    (DAV2_BATCH, 148, 264, 256, 296, 528),
+    (DAV2_BATCH, 296, 528, 128, 518, 924),
+]
+# (B, H, W, C, out_h, out_w, dtype, storage offset in elements, timed)
+RESAMPLE_SHAPES = [(*s, "bf16", 0, True) for s in DAV2_RESAMPLES] + [
+    (DAV2_BATCH, 296, 528, 128, 518, 924, "f32", 0, True),   # --dtype f32, the mixed decoder
+    (DAV2_BATCH, 148, 264, 256, 296, 528, "f16", 0, True),   # --dtype f16
+    (DAV2_BATCH, 19, 33, 256, 37, 66, "f32", 0, False),
+    (DAV2_BATCH, 37, 66, 256, 74, 132, "f16", 0, False),
+] + [(*s, dt, 0, False) for dt in ("bf16", "f32", "f16") for s in (
+    (2, 7, 9, 24, 31, 5),      # up in H, down in W; 24 channels: f32 16-byte vectors only
+    (2, 11, 13, 16, 4, 6),     # down in both
+    (3, 5, 7, 3, 17, 29),      # 3 channels: PyTorch's NCHW kernel
+    (2, 13, 17, 8, 13, 40),    # 8 channels: NCHW, 16-byte vectors
+    (2, 13, 17, 20, 13, 40),   # 20: one element a lane
+    (1, 9, 9, 20, 1, 1),       # an output of one pixel
+    (2, 1, 1, 32, 5, 7),       # an input of one pixel
+    (1, 6, 10, 64, 1, 19),     # one output row
+    (2, 4, 5, 16, 4, 5),       # the same size: a copy
+)] + [
+    (2, 37, 66, 256, 74, 132, "bf16", 1, False),   # a view 2 bytes past 16-byte alignment
+]
 # (keys, head dim, dtype, the K/V path the attention library reports)
 KV_PATH_CASES = [
     (577, 64, "bf16", "resident"),    # Depth Pro's ViTs
@@ -538,7 +577,7 @@ def phase_environment() -> str:
 _NEW_KERNELS = ("conv3x3_wgmma_kernel", "conv3x3_tf32_kernel", "conv3x3_split_weights",
                 "conv3x3_splitk_reduce", "attention_wgmma_kernel", "attention_tf32_kernel",
                 "split_tf32_kernel", "linker_scan_kernel", "randint_u8_kernel",
-                "vit_gelu_kernel", "vit_scaled_residual_kernel")
+                "vit_gelu_kernel", "vit_scaled_residual_kernel", "resample_bilinear_kernel")
 # template arguments as the mangled names spell them
 _MANGLED_ARGS = r"L[ib](\d+)E|13__nv_bfloat16|6__half|f"
 
@@ -577,12 +616,14 @@ def phase_build():
     from matrix_eyes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ["attention_qkv", "conv3x3", "linker_scan", "threefry", "vit_elementwise"]
+    names = ["attention_qkv", "conv3x3", "linker_scan", "threefry", "vit_elementwise",
+             "resample"]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         paths = list(pool.map(_build.library_path, names))
     print(f"[2] built {', '.join(os.path.basename(p) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("conv3x3", "attention_qkv", "linker_scan", "threefry", "vit_elementwise"):
+    for name in ("conv3x3", "attention_qkv", "linker_scan", "threefry", "vit_elementwise",
+                 "resample"):
         for line in _ptxas_lines(_build.ptxas_report(name)):
             print(f"[2] ptxas {line}")
         require("C7514" not in _build.ptxas_report(name),
@@ -2806,9 +2847,11 @@ def phase_dav2(dev) -> dict:
     want_attn = {(DAV2_BATCH, n, cfg.num_heads, cfg.head_dim, "bfloat16", "streamed"): cfg.depth}
     want_conv = {(DAV2_BATCH, H, W, cin, cout, torch.bfloat16, relu_in, n_skips, bias): k
                  for H, W, cin, cout, relu_in, n_skips, bias, k in DAV2_CONVS}
+    want_resample = {(*s, "bfloat16"): 1 for s in DAV2_RESAMPLES}
     outs, runs = [], []
     for _ in range(3):  # eager, capture, replay
-        nn.gelu_.launches = nn.scaled_residual.launches = 0
+        nn.gelu_.launches = nn.scaled_residual.launches = nn.resize_bilinear.launches = 0
+        nn.resize_bilinear.launches_by_shape.clear()
 
         def call():
             from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
@@ -2820,13 +2863,16 @@ def phase_dav2(dev) -> dict:
         outs.append(inv)
         runs.append({"counts": counts, "attention_by_shape": attn, "conv3x3_by_shape": conv,
                      "gelu": nn.gelu_.launches, "scaled_residual": nn.scaled_residual.launches,
+                     "resize_bilinear_by_shape": dict(nn.resize_bilinear.launches_by_shape),
                      "mode": aot.cache().modes[-1]})
+        runs[-1]["counts"]["resize_bilinear"] = nn.resize_bilinear.launches
     for r in runs:
         print(f"[20] dav2 inverse_depth_batch x{DAV2_BATCH} {r['mode']}: launches {r['counts']}, "
               f"gelu {r['gelu']}, scaled_residual {r['scaled_residual']}; attention by "
               f"(B, N, H, D, dtype, path) {r['attention_by_shape']}; conv3x3 by shape "
               f"{len(r['conv3x3_by_shape'])} shapes, {sum(r['conv3x3_by_shape'].values())} "
-              f"launches")
+              f"launches; resize_bilinear by (B, H, W, C, out_h, out_w, dtype) "
+              f"{r['resize_bilinear_by_shape']}")
     modes = [r["mode"] for r in runs]
     require(modes == [(f"dav2_fwd_b{DAV2_BATCH}", m) for m in ("eager", "capture", "replay")],
             f"dav2 forward modes {modes}, expected eager, capture, replay")
@@ -2838,6 +2884,9 @@ def phase_dav2(dev) -> dict:
         require((r["gelu"], r["scaled_residual"]) == (cfg.depth, 2 * cfg.depth),
                 f"dav2 launched gelu/scaled_residual {r['gelu']}/{r['scaled_residual']}, "
                 f"expected {cfg.depth}/{2 * cfg.depth}")
+        require(r["resize_bilinear_by_shape"] == want_resample,
+                f"dav2 resize_bilinear launches by shape {r['resize_bilinear_by_shape']}, "
+                f"expected {want_resample}")
     require(outs[0].shape == (DAV2_BATCH, h, w) and outs[0].dtype == np.float32,
             f"dav2 inverse depth {outs[0].shape} {outs[0].dtype}, expected "
             f"{(DAV2_BATCH, h, w)} float32")
@@ -2848,6 +2897,61 @@ def phase_dav2(dev) -> dict:
     del me, params
     torch.cuda.empty_cache()
     return runs[0]["counts"]
+
+
+def resample_row(dev, b, h, w, c, out_h, out_w, dtype, offset, timed) -> dict:
+    """``nn.resize_bilinear`` (the kernel) against its plain version,
+    ``F.interpolate`` on the channels-last view, bit for bit; when
+    ``timed``, both by CUDA events and by the profiler, and the byte bound:
+    the input read once and the output written once at 3.35 TB/s."""
+    import torch
+
+    from matrix_eyes_tpu_torch.ops import nn
+    from matrix_eyes_tpu_torch.parallel.checks import device_ms
+
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(b * h * w * c + out_h * out_w)
+    n = b * h * w * c
+    x = (torch.randn(n + offset, generator=gen, device=dev) * 3).to(dt)[offset:].view(b, h, w, c)
+    got = nn.resize_bilinear(x, out_h, out_w)
+    want = nn.resize_bilinear_plain(x, out_h, out_w)
+    torch.cuda.synchronize()
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    differing = int((got.view(bits) != want.view(bits)).sum().item())
+    shape = f"{b}x{h}x{w}x{c} -> {out_h}x{out_w} {dtype}" + (f" +{offset}" if offset else "")
+    res = {"shape": shape, "ok": got.shape == want.shape and got.dtype == want.dtype
+           and differing == 0, "differing": differing, "elements": got.numel()}
+    nbytes = (x.numel() + got.numel()) * x.element_size()
+    res["bound_ms"], res["bound_by"] = nbytes / PEAK_BYTES_S * 1e3, "bytes"
+    if timed:
+        reps = 20
+        res["ms"] = time_ms(lambda: nn.resize_bilinear(x, out_h, out_w), reps)
+        res["device_ms"] = device_ms(lambda: nn.resize_bilinear(x, out_h, out_w), reps)[0]
+        res["plain_ms"] = time_ms(lambda: nn.resize_bilinear_plain(x, out_h, out_w), reps)
+        res["plain_device_ms"] = device_ms(lambda: nn.resize_bilinear_plain(x, out_h, out_w),
+                                           reps)[0]
+        res["bound_share"] = res["bound_ms"] / res["device_ms"]
+        res["plain_bound_share"] = res["bound_ms"] / res["plain_device_ms"]
+    times = (f"ms={res['ms']:.4f} device_ms={res['device_ms']:.4f} "
+             f"F.interpolate ms={res['plain_ms']:.4f} device_ms={res['plain_device_ms']:.4f} "
+             f"bound share {100 * res['bound_share']:.1f}% (F.interpolate "
+             f"{100 * res['plain_bound_share']:.1f}%) " if timed else "")
+    print(f"[21] resize_bilinear {shape}: {nbytes / 1e6:.2f} MB, {times}"
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"{'ok (bit-exact)' if res['ok'] else 'FAIL: %d elements differ' % differing}")
+    return res
+
+
+def phase_resample(dev) -> dict:
+    """The bilinear resampling kernel against ``F.interpolate`` at
+    ``RESAMPLE_SHAPES``. Returns the rows."""
+    import torch
+
+    rows = [resample_row(dev, *row) for row in RESAMPLE_SHAPES]
+    bad = [r["shape"] for r in rows if not r["ok"]]
+    require(not bad, f"resize_bilinear differs from F.interpolate at {bad}")
+    torch.cuda.empty_cache()
+    return {"rows": rows}
 
 
 def main() -> int:
@@ -2905,6 +3009,7 @@ def main() -> int:
         os.remove(weights)
     vit_elementwise = phase_vit_elementwise(dev)
     by_path["dav2_frames_b8"] = phase_dav2(dev)
+    resample = phase_resample(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -2977,6 +3082,11 @@ def main() -> int:
                         "launches_path": "fwd_mixed_b4",
                         "rows": [r for r, (k, *_rest) in zip(vit_elementwise["rows"],
                                                             VIT_ELEMENTWISE_SHAPES) if k == name]})
+    # not a TPU kernel: the JAX package has no Depth Anything V2
+    kernels.append({"name": "resize_bilinear", "route": "cuda", "tpu_kernel": False,
+                    "source": "matrix_eyes_tpu_torch/csrc/resample.cu", "replaces": None,
+                    "launches": by_path["dav2_frames_b8"]["resize_bilinear"],
+                    "launches_path": "dav2_frames_b8", "rows": resample["rows"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -75,8 +75,9 @@ enqueued, the graph launched, the output clones enqueued.
 The kernel wrappers count their launches in Python, which a replay does
 not run: the counters' increments during a capture are recorded and added
 again at every replay (``_LaunchCounters``), so a forward counts 72
-attention, 24 conv3x3, 72 gelu and 144 scaled_residual launches however it
-ran, and on a mesh the collectives it called (``parallel.collectives``'
+attention, 24 conv3x3, 72 gelu and 144 scaled_residual launches (a Depth
+Anything V2 forward also 5 resize_bilinear launches) however it ran, and on
+a mesh the collectives it called (``parallel.collectives``'
 counts, bytes and gather shapes), which ``collectives.check_forward`` reads.
 
 On a device mesh (``parallel``: one process per rank) the forwards go
@@ -151,7 +152,7 @@ class _LaunchCounters:
     def _fields() -> List[Tuple[Any, str]]:
         from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
         from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-        from matrix_eyes_tpu_torch.ops.nn import gelu_, scaled_residual
+        from matrix_eyes_tpu_torch.ops.nn import gelu_, resize_bilinear, scaled_residual
         from matrix_eyes_tpu_torch.ops.prng import randint_u8
         from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
         from matrix_eyes_tpu_torch.parallel import collectives
@@ -163,7 +164,8 @@ class _LaunchCounters:
                 (collectives, "counts"), (collectives, "result_bytes"),
                 (collectives, "gather_shapes"), (randint_u8, "launches"),
                 (gelu_, "launches"), (gelu_, "launches_by_shape"),
-                (scaled_residual, "launches"), (scaled_residual, "launches_by_shape")]
+                (scaled_residual, "launches"), (scaled_residual, "launches_by_shape"),
+                (resize_bilinear, "launches"), (resize_bilinear, "launches_by_shape")]
 
     @classmethod
     def snapshot(cls) -> list:

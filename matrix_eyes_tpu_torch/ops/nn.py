@@ -22,6 +22,12 @@ bit for bit the PyTorch chain of the plain version (``gelu_plain``,
 ``scaled_residual_plain``), which PyTorch runs as three passes with f32
 intermediates in device memory. A CUDA tensor goes to the kernel (or
 raises), a CPU tensor to the plain version.
+
+Depth Anything V2's bilinear resamplings (``resize_bilinear``, the DPT
+head's) run on the card as ``csrc/resample.cu``: 16-byte loads and stores,
+each column's and row's weights computed once, an input row summed once
+for the output rows it serves, bit for bit PyTorch's ``F.interpolate``
+(the plain version, ``resize_bilinear_plain``).
 """
 
 from __future__ import annotations
@@ -51,16 +57,28 @@ _SIGNATURES = {
     ]),
     "me_vit_elementwise_prepare": (ctypes.c_int, []),
 }
+_RESAMPLE_SIGNATURES = {
+    "me_resample_bilinear": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p,                       # x, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,               # batch, in_h, in_w
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,               # out_h, out_w, channels
+        ctypes.c_int,                                           # dtype
+        ctypes.c_void_p,                                        # stream
+    ]),
+    "me_resample_prepare": (ctypes.c_int, []),
+}
 # a chunk of the kernels' vector loads, elements: the residual's rows are whole chunks
 _VEC = 8
 
 
 def prepare() -> None:
-    """Build (if missing) and load the library, and load its kernels on the
-    current device: the one-time work of a first call
+    """Build (if missing) and load the libraries, and load their kernels on
+    the current device: the one-time work of a first call
     (``aot.prefetch_async``)."""
     _build.check_launch(_build.load("vit_elementwise", _SIGNATURES).me_vit_elementwise_prepare(),
                         "vit_elementwise prepare")
+    _build.check_launch(_build.load("resample", _RESAMPLE_SIGNATURES).me_resample_prepare(),
+                        "resample prepare")
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,13 +248,45 @@ def deconv2x2(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
     return deconv(x, w, b, 2)
 
 
-def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def resize_bilinear_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resampling of NHWC ``x`` to (out_h, out_w) with
-    ``align_corners=True`` (``F.interpolate``, PyTorch's kernel, on the
-    channels-last view: no transpose is copied), in ``x.dtype``."""
+    ``align_corners=True`` (``F.interpolate`` on the channels-last view: no
+    transpose is copied), in ``x.dtype``."""
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
                       align_corners=True)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resampling of NHWC ``x`` (B, H, W, C) to (B, out_h, out_w,
+    C) with ``align_corners=True``, in ``x.dtype``: one pass of the
+    ``resample_bilinear`` kernel on a CUDA tensor, bit for bit
+    ``F.interpolate``'s result; the plain version on a CPU tensor."""
+    if x.dim() != 4 or min(x.shape[1], x.shape[2], out_h, out_w) < 1:
+        raise ValueError(f"resize_bilinear takes a (B, H, W, C) tensor with H, W >= 1 to an "
+                         f"out_h, out_w >= 1, got {tuple(x.shape)} to {(out_h, out_w)}")
+    if x.device.type == "cpu":
+        return resize_bilinear_plain(x, out_h, out_w)
+    if x.device.type != "cuda" or not x.is_contiguous():
+        raise ValueError(f"resize_bilinear runs on contiguous CUDA or CPU tensors, "
+                         f"got a {'' if x.is_contiguous() else 'non-'}contiguous one on {x.device}")
+    code = _build.dtype_code(x.dtype)
+    b, h, w, c = x.shape
+    out = torch.empty((b, out_h, out_w, c), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("resample", _RESAMPLE_SIGNATURES)
+    with torch.cuda.device(x.device):
+        rc = lib.me_resample_bilinear(x.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w, c,
+                                      code, _stream(x.device))
+    _build.check_launch(rc, "resize_bilinear")
+    resize_bilinear.launches += 1
+    resize_bilinear.launches_by_shape[(b, h, w, c, out_h, out_w, _dtype_name(x))] += 1
+    return out
+
+
+resize_bilinear.launches = 0
+resize_bilinear.launches_by_shape = collections.Counter()  # by (B, H, W, C, out_h, out_w, dtype)
 
 
 def patch_embed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, patch: int) -> torch.Tensor:

@@ -4,6 +4,7 @@ bit-equality check between source trees.
 
     python3 scripts/torch_dav2_check.py dav2 [--batch 8] [--out FILE] [--tiny]
     python3 scripts/torch_dav2_check.py depth_pro TREE OUT.npz
+    python3 scripts/torch_dav2_check.py frames TREE OUT.npz
     python3 scripts/torch_dav2_check.py same A.npz B.npz
 
 ``dav2``: the published Large on the benchmark's seeded bf16 weights
@@ -24,7 +25,9 @@ packages of one name), the bf16 Depth Pro session of the benchmark's
 ``depth_pro-bf16`` configuration on two seeded 12 MP photos: one photo
 with its focal length (``fwd_fnorm_b1``) and four, two without
 (``fwd_mixed_b4``), each called three times; the third calls' results
-to OUT.npz. ``same`` compares two such files bit for bit.
+to OUT.npz. ``frames``: the same for the ``depth_anything_v2-l-bf16``
+session on eight seeded 1920x1080 frames (``dav2_fwd_b8``). ``same``
+compares two such files bit for bit.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ def run_dav2(batch: int, out: str, tiny: bool = False) -> dict:
     from eyebench.harness import architecture
     from eyebench.reference import depth_anything_v2 as ref
     from matrix_eyes_tpu_torch import aot, api
+    from matrix_eyes_tpu_torch.ops import nn
     from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
     from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
 
@@ -93,12 +97,15 @@ def run_dav2(batch: int, out: str, tiny: bool = False) -> dict:
     for _ in range(3):
         attention_qkv.launches_by_shape.clear()
         conv3x3.launches_by_shape.clear()
+        nn.resize_bilinear.launches_by_shape.clear()
         outs.append(me.inverse_depth_batch(frames))
     res["modes"] = [m for _n, m in list(aot.cache().modes)[-6:]]
     res["shape"] = list(outs[-1].shape)
     res["replay_equals_eager"] = bool(np.array_equal(outs[0], outs[2]))
     res["attention_by_shape"] = {str(k): v for k, v in attention_qkv.launches_by_shape.items()}
     res["conv3x3_by_shape"] = {str(k[:5] + k[6:]): v for k, v in conv3x3.launches_by_shape.items()}
+    res["resize_bilinear_by_shape"] = {str(k): v
+                                       for k, v in nn.resize_bilinear.launches_by_shape.items()}
     if not tiny:
         torch.cuda.synchronize()
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -146,25 +153,35 @@ def run_dav2(batch: int, out: str, tiny: bool = False) -> dict:
     return res
 
 
-def run_depth_pro(tree: str, out: str) -> None:
-    """In a child process from ``tree``'s root: its own packages."""
-    code = r'''
+_TREE_RUN = r'''
 import json, sys, types
 import numpy as np, torch
 from eyebench.harness import architecture
 from eyebench.harness.photos import scene
-config = json.load(open("eyebench/configs/depth_pro-bf16.json"))
-ctx = types.SimpleNamespace(config=config, policy="bf16", device=torch.device("cuda", 0))
+config = json.load(open("eyebench/configs/%s.json"))
+w, h = %d, %d
+ctx = types.SimpleNamespace(config=config, policy="bf16", device=torch.device("cuda", 0),
+                            mix={"pool": {"width": w, "height": h}})
 me = architecture.of(config).session(ctx)
-photos = [scene(np.random.default_rng([5, i]), 4032, 3024) for i in range(4)]
+photos = [scene(np.random.default_rng([5, i]), w, h) for i in range(%d)]
 got = {}
-for name, rgbs, focal in (("b1", photos[:1], [28.0]), ("b4", photos, [28.0, None, 50.0, None])):
+for name, rgbs, focal in %s:
     for _ in range(3):
         inv = me.inverse_depth_batch(rgbs, focal)
     got[name] = inv
 np.savez(sys.argv[1], **got)
 print(json.dumps({k: [list(v.shape), float(v.mean())] for k, v in got.items()}), flush=True)
 '''
+
+
+def run_tree(tree: str, out: str, model: str) -> None:
+    """In a child process from ``tree``'s root: its own packages."""
+    if model == "depth_pro":
+        code = _TREE_RUN % ("depth_pro-bf16", 4032, 3024, 4, '(("b1", photos[:1], [28.0]), '
+                            '("b4", photos, [28.0, None, 50.0, None]))')
+    else:
+        code = _TREE_RUN % ("depth_anything_v2-l-bf16", 1920, 1080, 8,
+                            '(("b8", photos, [None] * 8),)')
     subprocess.run([sys.executable, "-c", code, os.path.abspath(out)], cwd=tree, check=True)
 
 
@@ -184,9 +201,10 @@ def main(argv=None) -> int:
     d.add_argument("--batch", type=int, default=8)
     d.add_argument("--out", default="")
     d.add_argument("--tiny", action="store_true")
-    p = sub.add_parser("depth_pro")
-    p.add_argument("tree")
-    p.add_argument("out")
+    for name in ("depth_pro", "frames"):
+        p = sub.add_parser(name)
+        p.add_argument("tree")
+        p.add_argument("out")
     s = sub.add_parser("same")
     s.add_argument("a")
     s.add_argument("b")
@@ -195,8 +213,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, ROOT)
     if args.cmd == "dav2":
         run_dav2(args.batch, args.out, args.tiny)
-    elif args.cmd == "depth_pro":
-        run_depth_pro(args.tree, args.out)
+    elif args.cmd in ("depth_pro", "frames"):
+        run_tree(args.tree, args.out, args.cmd)
     else:
         return 0 if same(args.a, args.b) else 1
     return 0
