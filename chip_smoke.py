@@ -147,8 +147,7 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    ``cli.main(["--profile=DIR", ...])`` over three photos whose forwards
    replay, its trace holding their kernels; and the server burst with
    graphs against eager (``scripts/torch_serve_burst.py --compare-aot``,
-   two rounds in turns). Phase 15 also times the start to the first PNG
-   with and without the warm-up thread (``aot.prefetch_async``);
+   two rounds in turns);
 18. the mesh's forwards through its CUDA-graph cache (``aot.mesh_cache``):
    (a) an NCCL world of one rank captures ``dist.all_reduce`` and
    ``dist.all_gather_into_tensor`` called directly inside a program of a
@@ -223,6 +222,7 @@ port loaded jax or any module of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -367,7 +367,7 @@ VIT_ELEMENTWISE_SHAPES = [
 # forward or None): every distinct conv of the forward (4 projections, 18
 # residual-unit convs, the head's 2) in bf16, in f32 (--dtype f32 and the
 # mixed policy) and in f16 (--dtype f16), then shapes off the main path.
-# The launches column is what the depth-map run of that dtype must show, shape by shape (conv3x3.launches_by_shape); the
+# The launches column is what the depth-map run of that dtype must show, shape by shape (conv3x3's in the launch ledger); the
 # per-forward sums weight by that count.
 _FORWARD_CONVS = [  # (H, W, Cin, Cout, relu_in, n_skips, bias, launches)
     (768, 768, 256, 256, True, 2, True, 1),    # fused RCU, the hot shape
@@ -469,37 +469,39 @@ KV_PATH_CASES = [
 ]
 
 
-def kernel_wrappers() -> dict:
-    """The kernels' wrappers by name; each counts its own launches."""
-    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-    from matrix_eyes_tpu_torch.ops.prng import randint_u8
-    from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
-
-    return {"attention_qkv": attention_qkv, "conv3x3": conv3x3, "linker_scan": linker_scan,
-            "attention_flash": attention_flash, "threefry": randint_u8}
+# the ports of the JAX package's kernels, and threefry, by their names in the launch ledger
+KERNELS = ("attention_qkv", "conv3x3", "linker_scan", "attention_flash", "threefry")
 
 
 def counted_run(fn):
-    """Run fn with every launch counter set to 0 just before it; return its
-    result, the counts just after ({kernel: launches}) and conv3x3's
-    launches by shape ({(B, H, W, Cin, Cout, dtype, relu_in, residuals,
-    bias): launches}). attention_qkv's launches by dtype and by batch stay
-    on the wrapper (``launches_by_dtype``, ``launches_by_batch``), set to 0
-    here as well."""
+    """Run fn with the launch ledger (``ops._build``) cleared just before
+    it; return its result, the counts just after ({kernel: launches}) and
+    conv3x3's launches by shape ({(B, H, W, Cin, Cout, dtype, relu_in,
+    residuals, bias): launches}). The ledger keeps every kernel's launches
+    by key until the next run (``launches_by``)."""
     import torch
 
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    wrappers["conv3x3"].launches_by_shape.clear()
-    wrappers["attention_qkv"].launches_by_dtype.clear()
-    wrappers["attention_qkv"].launches_by_batch.clear()
-    wrappers["attention_qkv"].launches_by_shape.clear()
+    from matrix_eyes_tpu_torch.ops import _build
+
+    _build.reset()
     result = fn()
     torch.cuda.synchronize()
-    return (result, {name: w.launches for name, w in wrappers.items()},
-            dict(wrappers["conv3x3"].launches_by_shape))
+    return (result, {name: _build.launches(name).total() for name in KERNELS},
+            dict(_build.launches("conv3x3")))
+
+
+def launches_by(kernel: str, index: int | None = None) -> dict:
+    """``kernel``'s launches in the ledger by key, or by the key's item at
+    ``index`` (attention_qkv: 0 the batch, 4 the dtype)."""
+    from matrix_eyes_tpu_torch.ops import _build
+
+    counts = _build.launches(kernel)
+    if index is None:
+        return dict(counts)
+    by = collections.Counter()
+    for key, n in counts.items():
+        by[key[index]] += n
+    return dict(by)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1466,11 +1468,11 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
     from matrix_eyes_tpu_torch import cli, pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO, RuntimeConfig, parse_dtype_policy
     from matrix_eyes_tpu_torch.models import depth_pro
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
     from matrix_eyes_tpu_torch.pt import convert, loader
 
     cfg = DEPTH_PRO
-    vit_dtype, conv_dtype = (getattr(torch, n) for n in POLICY_DTYPES[policy])
+    vit_dtype, conv_name = POLICY_DTYPES[policy]
+    conv_dtype = getattr(torch, conv_name)
     out = os.path.join(OUT_DIR, f"chip_smoke_{policy}.png")
     loaded = {}
     real_read, real_load = convert.read_checkpoint, loader.load_checkpoint
@@ -1494,7 +1496,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
             walls.append(time.perf_counter() - t0)
             require(rc == 0, f"cli.main --dtype={policy} exited {rc}")
             counts.append(c)
-            by_dtype.append(dict(attention_qkv.launches_by_dtype))
+            by_dtype.append(launches_by("attention_qkv", 4))
             shapes.append(sh)
     finally:
         convert.read_checkpoint, loader.load_checkpoint = real_read, real_load
@@ -1504,7 +1506,7 @@ def phase_policy(dev, policy: str, phase: int, canonical: dict, src, photo: str,
           f"attention_qkv by dtype: {by_dtype}")
     expect = {"attention_qkv": 3 * cfg.depth, "conv3x3": 24, "linker_scan": 0,
               "attention_flash": 0, "threefry": 0}
-    want_dtypes = {vit_dtype: 2 * cfg.depth, torch.float32: cfg.depth}
+    want_dtypes = {vit_dtype: 2 * cfg.depth, "float32": cfg.depth}
     require(all(c == expect for c in counts), f"--dtype={policy}: launch counts {counts}, "
             f"expected {expect} per run")
     require(all(d == want_dtypes for d in by_dtype),
@@ -1643,7 +1645,6 @@ def phase_serve(dev, canonical: dict, src, photos: list) -> tuple:
     from PIL import Image
 
     from matrix_eyes_tpu_torch import api
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
     from matrix_eyes_tpu_torch.pt.convert import place_params
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -1715,7 +1716,7 @@ def phase_serve(dev, canonical: dict, src, photos: list) -> tuple:
                 results, counts, _ = counted_run(lambda: list(pool.map(
                     lambda i: _http(url + "/v1/depth" + query, bodies[i % 4]), range(8))))
                 wall = time.perf_counter() - t0
-            by_batch = dict(attention_qkv.launches_by_batch)
+            by_batch = launches_by("attention_qkv", 0)
         batch_counts = batch_counts or counts
         print(f"[14] --max-batch=4, /v1/depth{query or ' (FOV head)'}: 8 concurrent requests "
               f"over 4 photos in {wall:.3f} s; launches {counts}; attention_qkv launches by "
@@ -1827,86 +1828,6 @@ def _warm_start_policy(cfg, canonical: dict, policy: str, pt: str, photo: str) -
     return counts
 
 
-def _start_to_png(canonical: dict, pt: str, photo: str) -> None:
-    """Start to the first PNG under bf16 with the warm-up thread
-    (``aot.prefetch_async``, the default) and without it
-    (``MATRIX_EYES_AOT=off``): cold (``--convert-checkpoints``, the caches
-    deleted first) in this process once without it (phase 15's cold run is
-    the one with it); warm from the caches in this process and in a fresh
-    ``python -m matrix_eyes_tpu_torch`` process (which reads the caches
-    alone), in turns (with, without, without, with)."""
-    import subprocess as sp
-
-    from matrix_eyes_tpu_torch import aot, cli
-    from matrix_eyes_tpu_torch.config import DEPTH_PRO
-    from matrix_eyes_tpu_torch.pt import convert
-
-    def read(path, parts=convert.PARTS, cfg_=None):
-        return DEPTH_PRO, {part: canonical[part] for part in parts}
-
-    def refuse(*_a, **_k):
-        raise RuntimeError("the warm start read the .pt")
-
-    out = os.path.join(OUT_DIR, "start_to_png.png")
-    d = os.path.dirname(pt)
-    for name in os.listdir(d):
-        if ".torch.f16." in name or "-torch-" in name:
-            os.remove(os.path.join(d, name))
-    real_read = convert.read_checkpoint
-    walls = {"cold_without": None, "warm": {"with": [], "without": []},
-             "fresh_process": {"with": [], "without": []}}
-    try:
-        convert.read_checkpoint = read
-        with aot.disabled():
-            t0 = time.perf_counter()
-            require(cli.main(["--convert-checkpoints", f"--checkpoint-path={pt}", photo,
-                              out]) == 0, "cold start without the warm-up thread failed")
-            walls["cold_without"] = time.perf_counter() - t0
-        convert.read_checkpoint = refuse
-        for mode in ("with", "without", "without", "with"):
-            with contextlib.ExitStack() as stack:
-                if mode == "without":
-                    stack.enter_context(aot.disabled())
-                t0 = time.perf_counter()
-                require(cli.main([f"--checkpoint-path={pt}", photo, out]) == 0,
-                        f"warm start {mode} the warm-up thread failed")
-                walls["warm"][mode].append(time.perf_counter() - t0)
-    finally:
-        convert.read_checkpoint = real_read
-    stages = {"with": [], "without": []}
-    for mode in ("with", "without", "without", "with"):
-        env = dict(os.environ, MATRIX_EYES_AOT="on" if mode == "with" else "off",
-                   MATRIX_EYES_TIMINGS="1")
-        t0 = time.perf_counter()
-        proc = sp.run([sys.executable, "-m", "matrix_eyes_tpu_torch", f"--checkpoint-path={pt}",
-                       photo, out], cwd=ROOT, env=env, capture_output=True, text=True,
-                      timeout=300)
-        walls["fresh_process"][mode].append(time.perf_counter() - t0)
-        require(proc.returncode == 0 and _png_size(out) == _png_size(photo),
-                f"a fresh warm start {mode} the warm-up thread exited {proc.returncode}: "
-                f"{proc.stdout[-800:]} {proc.stderr[-800:]}")
-        # the process's stage table (MATRIX_EYES_TIMINGS): where its start goes
-        table = {}
-        for line in proc.stderr.splitlines():
-            name, _, value = line.strip().rpartition("  ")
-            if value.endswith(" s") or " s x" in value:
-                table[name.strip()] = float(value.split(" s")[0])
-        weights = sum(v for k, v in table.items() if k.startswith("weights "))
-        stages[mode].append({"weights": round(weights, 3), **{
-            k: round(table[k], 3) for k in ("decode source image", "preprocess (device)",
-                                            "model forward", "write output", "process total")
-            if k in table}})
-    print(f"[15] start to the first PNG, bf16, with / without the warm-up thread: cold in "
-          f"this process without {walls['cold_without']:.3f} s (with: the cold run above); "
-          f"warm in this process with {[round(w, 3) for w in walls['warm']['with']]} s, without "
-          f"{[round(w, 3) for w in walls['warm']['without']]} s; a fresh process from start to "
-          f"exit with {[round(w, 3) for w in walls['fresh_process']['with']]} s, without "
-          f"{[round(w, 3) for w in walls['fresh_process']['without']]} s")
-    for mode in ("with", "without"):
-        print(f"[15] a fresh process {mode} the warm-up thread, its stage table s: "
-              f"{stages[mode]}")
-
-
 def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
     """Warm start from the port's weight caches (``pt/loader.py``): a
     stand-in .pt gives the stamp and the reader returns the canonical
@@ -1930,7 +1851,6 @@ def phase_warm_start(dev, canonical: dict, photo: str) -> dict:
         f.write(b"stand-in for depth_pro.pt\n")
     try:
         counts = _warm_start_policy(DEPTH_PRO, canonical, "bf16", pt, photo)
-        _start_to_png(canonical, pt, photo)
         free = shutil.disk_usage(d).free
         full = free > 16 * 2**30  # ~1 GiB of int8 and ~2.4 GiB of mixed caches, and copies
         print(f"[15] {free / 2**30:.1f} GiB free on the disk: int8 and mixed at "
@@ -2751,7 +2671,6 @@ def phase_vit_elementwise(dev) -> dict:
     from matrix_eyes_tpu_torch import pipeline
     from matrix_eyes_tpu_torch.config import DEPTH_PRO
     from matrix_eyes_tpu_torch.models.init import init_params
-    from matrix_eyes_tpu_torch.ops import nn
     from matrix_eyes_tpu_torch.pt.convert import place_params
 
     rows = [vit_elementwise_row(dev, *row) for row in VIT_ELEMENTWISE_SHAPES]
@@ -2776,17 +2695,12 @@ def phase_vit_elementwise(dev) -> dict:
     F.gelu = no_gelu
     try:
         for _ in range(3):  # eager, capture, replay
-            nn.gelu_.launches = nn.scaled_residual.launches = 0
-            nn.gelu_.launches_by_shape.clear()
-            nn.scaled_residual.launches_by_shape.clear()
-            inv = pipeline.forward_batch(cfg, params, img, f_norms)
-            torch.cuda.synchronize()
-            counts.append({"gelu": nn.gelu_.launches,
-                           "scaled_residual": nn.scaled_residual.launches,
-                           "gelu_by_shape": {str(k): v for k, v in
-                                             nn.gelu_.launches_by_shape.items()},
+            inv, _, _ = counted_run(lambda: pipeline.forward_batch(cfg, params, img, f_norms))
+            counts.append({"gelu": sum(launches_by("gelu").values()),
+                           "scaled_residual": sum(launches_by("scaled_residual").values()),
+                           "gelu_by_shape": {str(k): v for k, v in launches_by("gelu").items()},
                            "scaled_residual_by_shape": {
-                               str(k): v for k, v in nn.scaled_residual.launches_by_shape.items()}})
+                               str(k): v for k, v in launches_by("scaled_residual").items()}})
     finally:
         F.gelu = real_gelu
     require(bool(torch.isfinite(inv).all()), "fwd_mixed_b4: non-finite inverse depth")
@@ -2814,7 +2728,6 @@ def phase_dav2(dev) -> dict:
     from matrix_eyes_tpu_torch import aot, api
     from matrix_eyes_tpu_torch.config import DAV2_LARGE
     from matrix_eyes_tpu_torch.models.init import init_params
-    from matrix_eyes_tpu_torch.ops import nn
     from matrix_eyes_tpu_torch.ops.flash_attention import kv_path
     from matrix_eyes_tpu_torch.pt.convert import place_params
 
@@ -2850,22 +2763,15 @@ def phase_dav2(dev) -> dict:
     want_resample = {(*s, "bfloat16"): 1 for s in DAV2_RESAMPLES}
     outs, runs = [], []
     for _ in range(3):  # eager, capture, replay
-        nn.gelu_.launches = nn.scaled_residual.launches = nn.resize_bilinear.launches = 0
-        nn.resize_bilinear.launches_by_shape.clear()
-
-        def call():
-            from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
-
-            inv = me.inverse_depth_batch(frames)
-            return inv, dict(attention_qkv.launches_by_shape)
-
-        (inv, attn), counts, conv = counted_run(call)
+        inv, counts, conv = counted_run(lambda: me.inverse_depth_batch(frames))
         outs.append(inv)
-        runs.append({"counts": counts, "attention_by_shape": attn, "conv3x3_by_shape": conv,
-                     "gelu": nn.gelu_.launches, "scaled_residual": nn.scaled_residual.launches,
-                     "resize_bilinear_by_shape": dict(nn.resize_bilinear.launches_by_shape),
-                     "mode": aot.cache().modes[-1]})
-        runs[-1]["counts"]["resize_bilinear"] = nn.resize_bilinear.launches
+        resample = launches_by("resize_bilinear")
+        runs.append({"counts": dict(counts, resize_bilinear=sum(resample.values())),
+                     "attention_by_shape": launches_by("attention_qkv"),
+                     "conv3x3_by_shape": conv,
+                     "gelu": sum(launches_by("gelu").values()),
+                     "scaled_residual": sum(launches_by("scaled_residual").values()),
+                     "resize_bilinear_by_shape": resample, "mode": aot.cache().modes[-1]})
     for r in runs:
         print(f"[20] dav2 inverse_depth_batch x{DAV2_BATCH} {r['mode']}: launches {r['counts']}, "
               f"gelu {r['gelu']}, scaled_residual {r['scaled_residual']}; attention by "

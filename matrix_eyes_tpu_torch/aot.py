@@ -72,13 +72,13 @@ is the replay counter over any window (``modes`` keeps the latest 256
 calls), and a replay's span is the host's issue time: the input copies
 enqueued, the graph launched, the output clones enqueued.
 
-The kernel wrappers count their launches in Python, which a replay does
-not run: the counters' increments during a capture are recorded and added
-again at every replay (``_LaunchCounters``), so a forward counts 72
-attention, 24 conv3x3, 72 gelu and 144 scaled_residual launches (a Depth
-Anything V2 forward also 5 resize_bilinear launches) however it ran, and on
-a mesh the collectives it called (``parallel.collectives``'
-counts, bytes and gather shapes), which ``collectives.check_forward`` reads.
+The kernel wrappers count their launches in Python, in the kernels' one
+launch ledger (``ops._build.ledger``), which a replay does not reach: a
+capture's increments of the ledger are recorded and added again at every
+replay, so a forward counts 72 attention, 24 conv3x3, 72 gelu and 144
+scaled_residual launches (a Depth Anything V2 forward also 5
+resize_bilinear launches) however it ran, and on a mesh the collectives it
+called, which ``collectives.check_forward`` reads from the same ledger.
 
 On a device mesh (``parallel``: one process per rank) the forwards go
 through a cache of the mesh's own (``mesh_cache``), whose key also names
@@ -108,13 +108,13 @@ import sys
 import threading
 import time
 import weakref
-from concurrent.futures import Future
 from functools import lru_cache
 from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
 from matrix_eyes_tpu_torch import timings
+from matrix_eyes_tpu_torch.ops import _build
 
 CAPACITY = 16  # live graphs
 MODES = ("eager", "capture", "replay")  # how a call runs its program
@@ -140,76 +140,11 @@ def _span(name: str, mode: str):
     return timings.trace(_DISPATCH_SPANS[mode], attrs)
 
 
-# -- the wrappers' launch counters -------------------------------------------
-
-class _LaunchCounters:
-    """Every kernel wrapper's launch counter and the collectives' counts
-    (ints, Counters and the list of gather shapes, which only grows):
-    snapshot, the difference of two snapshots, restore, and add a
-    difference."""
-
-    @staticmethod
-    def _fields() -> List[Tuple[Any, str]]:
-        from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-        from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-        from matrix_eyes_tpu_torch.ops.nn import gelu_, resize_bilinear, scaled_residual
-        from matrix_eyes_tpu_torch.ops.prng import randint_u8
-        from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
-        from matrix_eyes_tpu_torch.parallel import collectives
-
-        return [(attention_qkv, "launches"), (attention_qkv, "launches_by_dtype"),
-                (attention_qkv, "launches_by_batch"), (attention_qkv, "launches_by_shape"),
-                (attention_flash, "launches"), (conv3x3, "launches"),
-                (conv3x3, "launches_by_shape"), (linker_scan, "launches"),
-                (collectives, "counts"), (collectives, "result_bytes"),
-                (collectives, "gather_shapes"), (randint_u8, "launches"),
-                (gelu_, "launches"), (gelu_, "launches_by_shape"),
-                (scaled_residual, "launches"), (scaled_residual, "launches_by_shape"),
-                (resize_bilinear, "launches"), (resize_bilinear, "launches_by_shape")]
-
-    @classmethod
-    def snapshot(cls) -> list:
-        return [collections.Counter(v) if isinstance(v, collections.Counter)
-                else list(v) if isinstance(v, list) else v
-                for v in (getattr(o, a) for o, a in cls._fields())]
-
-    @staticmethod
-    def delta(before: list, after: list) -> list:
-        # a list's difference is the tail appended since the first snapshot
-        return [b2[len(b1):] if isinstance(b1, list) else b2 - b1
-                for b1, b2 in zip(before, after)]
-
-    @classmethod
-    def restore(cls, snap: list) -> None:
-        for (owner, attr), v in zip(cls._fields(), snap):
-            if isinstance(v, collections.Counter):
-                getattr(owner, attr).clear()
-                getattr(owner, attr).update(v)
-            elif isinstance(v, list):
-                getattr(owner, attr)[:] = v
-            else:
-                setattr(owner, attr, v)
-
-    @classmethod
-    def add(cls, delta: list) -> None:
-        for (owner, attr), d in zip(cls._fields(), delta):
-            if isinstance(d, collections.Counter):
-                getattr(owner, attr).update(d)
-            elif isinstance(d, list):
-                getattr(owner, attr).extend(d)
-            elif d:
-                setattr(owner, attr, getattr(owner, attr) + d)
-
-
-def _attention_paths(delta: list) -> str:
+def _attention_paths(delta: collections.Counter) -> str:
     """A capture's attention launches by (B, N, heads, D, dtype, K/V path),
     for its ``MATRIX_EYES_AOT_LOG`` line."""
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
-
-    for (owner, attr), d in zip(_LaunchCounters._fields(), delta):
-        if owner is attention_qkv and attr == "launches_by_shape" and d:
-            return "; attention " + ", ".join(f"{n} x {k}" for k, n in sorted(d.items()))
-    return ""
+    paths = sorted((k[1:], n) for k, n in delta.items() if k[0] == "attention_qkv")
+    return "; attention " + ", ".join(f"{n} x {k}" for k, n in paths) if paths else ""
 
 
 # -- constants a graph reads -------------------------------------------------
@@ -411,7 +346,7 @@ class _Entry:
         self.graph = graph
         self.inputs = inputs  # [(argument index, static tensor)]
         self.outputs = outputs
-        self.delta = delta  # the launch counters' increments of one run
+        self.delta = delta  # the launch ledger's increments of one run
         self.held = held  # the constants the graph reads
         self.finalizers: List[weakref.finalize] = []
 
@@ -461,7 +396,6 @@ class GraphCache:
             self._begin(name, "eager")
             with _span(name, "eager"):
                 return fn(*args)
-        join_prefetch()
         key = self.key(name, args, salt)
         entry = self._live.get(key)
         if entry is None:
@@ -500,17 +434,19 @@ class GraphCache:
             s.copy_(args[i])
             static_args[i] = s
         held: List[torch.Tensor] = []  # the constants the graph reads (keep_alive)
-        delta: list = []
+        delta: collections.Counter = collections.Counter()
 
         def capture():
-            before = _LaunchCounters.snapshot()
+            # the warm-up run counted the call; the capture's counts go to
+            # its replays
+            before = collections.Counter(_build.ledger)
             _capturing.held = held
             try:
                 return fn(*static_args)
             finally:
                 _capturing.held = None
-                delta[:] = _LaunchCounters.delta(before, _LaunchCounters.snapshot())
-                _LaunchCounters.restore(before)
+                delta.update(_build.ledger - before)
+                _build.ledger.subtract(delta)
 
         with self._capture_lock:
             mem0 = self.backend.memory(device)
@@ -560,7 +496,7 @@ class GraphCache:
                 ev = torch.cuda.Event()
                 ev.record(cur)
                 self._last_replay[device] = ev
-        _LaunchCounters.add(entry.delta)
+        _build.ledger.update(entry.delta)
         return out
 
     def live(self) -> List[str]:
@@ -640,65 +576,6 @@ def call_cached(name: str, fn: Callable, args: Tuple, salt: str = ""):
 def cache() -> GraphCache:
     """The process's graph cache (its live graphs, ``captured``)."""
     return _cache
-
-
-# -- warm-up during the weight load ------------------------------------------
-
-_prefetch_lock = threading.Lock()
-_prefetch: Optional[Future] = None
-
-
-def prefetch_async(device) -> Optional[Future]:
-    """Start the first call's one-time work on a background thread: the
-    CUDA context on ``device``, the five kernel libraries (built if
-    missing, loaded) and their kernels (loaded, their shared-memory limits
-    set). The CLI calls this before the checkpoint load, as the JAX CLI
-    starts deserializing its executables before the weight upload. A
-    failure is raised by the next ``call_cached`` on the card, never
-    swallowed. Nothing happens on the CPU or under ``MATRIX_EYES_AOT=off``.
-
-    The cuBLAS, cuBLASLt and cuDNN handles are left to the first forward:
-    made on this thread, they ran alongside the weight load about three
-    times slower than alone and held up the first program by 1.4-2.0 s
-    (NVIDIA H100 80GB HBM3, 700 W; ``scripts/torch_warmup_variants.py``)."""
-    global _prefetch
-    device = torch.device(device)
-    if not enabled() or device.type != "cuda":
-        return None
-    fut: Future = Future()
-
-    def run():
-        try:
-            _warm_up(device)
-        except BaseException as err:  # handed to the caller through the future
-            fut.set_exception(err)
-        else:
-            fut.set_result(None)
-
-    with _prefetch_lock:
-        _prefetch = fut
-    threading.Thread(target=run, name="me-prefetch", daemon=True).start()
-    return fut
-
-
-def join_prefetch() -> None:
-    """Wait for a pending ``prefetch_async`` and raise its failure."""
-    global _prefetch
-    if _prefetch is None:
-        return
-    with _prefetch_lock:
-        fut, _prefetch = _prefetch, None
-    if fut is not None:
-        fut.result()
-
-
-def _warm_up(device: torch.device) -> None:
-    from matrix_eyes_tpu_torch.ops import conv3x3, flash_attention, nn, prng, stereogram_kernel
-
-    with torch.cuda.device(device):
-        torch.cuda.init()
-        for module in (flash_attention, conv3x3, nn, stereogram_kernel, prng):
-            module.prepare()
 
 
 @contextlib.contextmanager

@@ -22,9 +22,9 @@ package's ``--no-flash-attention`` exits 2 with a message saying so: the
 port has no kill switch. ``MATRIX_EYES_TIMINGS=1`` prints a stage table to
 stderr on exit.
 
-The CUDA context and the kernel libraries are made ready on a background
-thread while the checkpoint loads (``aot.prefetch_async``);
-``MATRIX_EYES_AOT=off`` turns that off with the CUDA graphs.
+The kernel libraries are built (where ``_build/`` lacks them) and loaded by
+the first program that launches their kernels; ``MATRIX_EYES_AOT=off`` runs
+every program eagerly, without CUDA graphs.
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def run(args: Args, progress=None, device=None, mesh=None) -> None:
     length) and run the pipeline on the CUDA card, or on ``device`` when a
     programmatic caller names one ("cpu"). A directory source runs every
     photo: ``--batch-size`` per forward, or one at a time with the next
-    decode prefetched; a failed decode or write skips that photo, a model
+    decode started ahead; a failed decode or write skips that photo, a model
     failure ends the run.
 
     ``mesh``: this rank's mesh (``--devices``, see ``main``). The
@@ -240,10 +240,6 @@ def run(args: Args, progress=None, device=None, mesh=None) -> None:
     if progress is not None:
         progress.update_message("reading checkpoint")
     if mesh is None:
-        from matrix_eyes_tpu_torch import aot
-
-        # the context and the kernel libraries get ready during the load
-        aot.prefetch_async(runtime.resolved_device())
         cfg, params = load_checkpoint(args.checkpoint_path, dtype=runtime.resolved_dtype(),
                                       device=runtime.resolved_device(),
                                       convert_checkpoints=args.convert_checkpoints, parts=parts,
@@ -261,9 +257,10 @@ def run(args: Args, progress=None, device=None, mesh=None) -> None:
         return
 
     # one photo at a time; the next photo decodes on a worker thread while
-    # this one runs (a failed prefetch decodes again in the pipeline, which
-    # reports it with its stage message). This loop wrote more photos per
-    # second on an H100 than extract_depth_batch at batch size 1 (PERF.md)
+    # this one runs (a photo whose decode fails there is decoded again in the
+    # pipeline, which reports it with its stage message). This loop wrote
+    # more photos per second on an H100 than extract_depth_batch at batch
+    # size 1 (PERF.md)
     pool = next_fut = None
     if len(jobs) > 1 and lead:
         from concurrent.futures import ThreadPoolExecutor

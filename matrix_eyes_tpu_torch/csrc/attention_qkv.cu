@@ -1022,37 +1022,6 @@ extern "C" int me_attention_bhnd(const void* q, const void* k, const void* v, vo
   return -3;
 }
 
-// Loads every kernel of the library on the current device and sets the
-// shared-memory limits that the launches set, so that a first call pays
-// neither (aot.prefetch_async runs this while the weights load). Returns 0
-// or the first CUDA error.
-extern "C" int me_attention_prepare() {
-  using hopper::prepare_kernel;
-  const cudaError_t errs[] = {
-      prepare_kernel(attention_kernel<float, 8>, 0),
-      prepare_kernel(attention_kernel<__nv_bfloat16, 8>, 0),
-      prepare_kernel(attention_kernel<__half, 8>, 0),
-      prepare_kernel(attention_wgmma_kernel<__nv_bfloat16, 32, true>,
-                     TcCfg<32, true>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__nv_bfloat16, 32, false>,
-                     TcCfg<32, false>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__nv_bfloat16, 64, true>,
-                     TcCfg<64, true>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__nv_bfloat16, 64, false>,
-                     TcCfg<64, false>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__half, 32, true>, TcCfg<32, true>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__half, 32, false>, TcCfg<32, false>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__half, 64, true>, TcCfg<64, true>::MAX_SMEM),
-      prepare_kernel(attention_wgmma_kernel<__half, 64, false>, TcCfg<64, false>::MAX_SMEM),
-      prepare_kernel(split_tf32_kernel<32>, 0),
-      prepare_kernel(split_tf32_kernel<64>, 0),
-      prepare_kernel(attention_tf32_kernel<32>, Tf32Cfg<32>::SMEM),
-      prepare_kernel(attention_tf32_kernel<64>, Tf32Cfg<64>::SMEM)};
-  for (const cudaError_t err : errs)
-    if (err != cudaSuccess) return static_cast<int>(err);
-  return 0;
-}
-
 // How a launch at head dim D over n_valid keys reads a head's K and V: 0 on
 // the CUDA cores (D = 8), 1 whole in shared memory (bf16 and f16 where they
 // fit: kv_resident), 2 through the ring (bf16 and f16 beyond that, and the

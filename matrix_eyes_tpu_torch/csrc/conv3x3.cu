@@ -676,32 +676,6 @@ extern "C" long long me_conv3x3_workspace_floats(int B, int H, int W, int Cin, i
   return workspace_floats(B, H, W, Cin, Cout, dtype == 0, splits);
 }
 
-// Loads every kernel of the library on the current device and sets the
-// shared-memory limits that the launches set, so that a first call pays
-// neither (aot.prefetch_async runs this while the weights load). Returns 0
-// or the first CUDA error.
-extern "C" int me_conv3x3_prepare() {
-  using hopper::prepare_kernel;
-  const cudaError_t errs[] = {
-      prepare_kernel(conv3x3_wgmma_kernel<__nv_bfloat16, 128, false>, TcCfg<128>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__nv_bfloat16, 128, true>, TcCfg<128>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__nv_bfloat16, 256, false>, TcCfg<256>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__nv_bfloat16, 256, true>, TcCfg<256>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__half, 128, false>, TcCfg<128>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__half, 128, true>, TcCfg<128>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__half, 256, false>, TcCfg<256>::SMEM),
-      prepare_kernel(conv3x3_wgmma_kernel<__half, 256, true>, TcCfg<256>::SMEM),
-      prepare_kernel(conv3x3_tf32_kernel<false>, Tf32Cfg::SMEM),
-      prepare_kernel(conv3x3_tf32_kernel<true>, Tf32Cfg::SMEM),
-      prepare_kernel(conv3x3_split_weights, 0),
-      prepare_kernel(conv3x3_splitk_reduce<float>, 0),
-      prepare_kernel(conv3x3_splitk_reduce<__nv_bfloat16>, 0),
-      prepare_kernel(conv3x3_splitk_reduce<__half>, 0)};
-  for (const cudaError_t err : errs)
-    if (err != cudaSuccess) return static_cast<int>(err);
-  return 0;
-}
-
 // Dynamic shared memory of one launch with N tile bn (for reports); bf16 and
 // f16 (dtype 1, 2) share their rings.
 extern "C" int me_conv3x3_smem_bytes(int bn, int dtype) {

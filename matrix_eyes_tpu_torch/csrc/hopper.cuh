@@ -464,18 +464,6 @@ inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t
   return r == CUDA_SUCCESS ? 0 : -100 - (int)r;
 }
 
-// Loads `kernel` (CUDA loads kernels lazily, at their first use) and, for
-// smem > 0, sets its dynamic shared-memory limit as its launch does. Each
-// library's prepare entry runs this for its kernels before the first call.
-template <typename Kernel>
-inline cudaError_t prepare_kernel(Kernel kernel, int smem) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess && smem > 0)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return err;
-}
-
 inline int sm_count() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||

@@ -201,16 +201,6 @@ extern "C" int me_linker_scan(const void* shift, const void* noise, void* out, v
   return static_cast<int>(cudaGetLastError());
 }
 
-// Loads the kernel on the current device (CUDA loads kernels lazily, at
-// their first use; its shared-memory limit depends on the call and is set
-// by the launch), so that a first call does not pay for it
-// (aot.prefetch_async runs this while the weights load). Returns 0 or a
-// CUDA error.
-extern "C" int me_linker_scan_prepare() {
-  cudaFuncAttributes attr;
-  return static_cast<int>(cudaFuncGetAttributes(&attr, linker_scan_kernel));
-}
-
 // Dynamic shared memory of one launch (for reports).
 extern "C" int me_linker_scan_smem_bytes(int W, int pw) {
   const bool smem_ring = pw < W && ring_in_smem(W, pw);

@@ -322,23 +322,3 @@ extern "C" int me_resample_bilinear(const void* x, void* out, int batch, int in_
                    : launch<T, false, false>(x, out, batch, in_h, in_w, out_h, out_w, channels, s);
   });
 }
-
-// Loads every kernel on the current device (CUDA loads kernels lazily, at
-// their first use), so that a first call does not pay for it
-// (aot.prefetch_async runs this while the weights load). Returns 0 or the
-// first CUDA error.
-extern "C" int me_resample_prepare() {
-  cudaFuncAttributes attr;
-  int rc = 0;
-  for (int a = 0; a < 3; ++a)
-    rc = rc ? rc : with_type(a, [&](auto t) {
-      using T = typename decltype(t)::type;
-      int e = 0;
-      e = e ? e : (int)cudaFuncGetAttributes(&attr, resample_bilinear_kernel<T, true, true>);
-      e = e ? e : (int)cudaFuncGetAttributes(&attr, resample_bilinear_kernel<T, true, false>);
-      e = e ? e : (int)cudaFuncGetAttributes(&attr, resample_bilinear_kernel<T, false, true>);
-      e = e ? e : (int)cudaFuncGetAttributes(&attr, resample_bilinear_kernel<T, false, false>);
-      return e;
-    });
-  return rc;
-}

@@ -2,8 +2,9 @@
 // 256, uint8) bit for bit, as JAX's partitionable threefry computes it.
 //
 // Replaces the noise that XLA draws inside the JAX package's stereogram
-// programs (matrix_eyes_tpu/ops/stereogram.py: _synthesize, and
-// prefetch_stereogram_noise's stereogram_noise program); not a TPU kernel.
+// programs (matrix_eyes_tpu/ops/stereogram.py: _synthesize, and the
+// stereogram_noise program that draws the noise ahead of the render); not a
+// TPU kernel.
 // For the flat row-major index i of the output:
 //
 //   (s0, s1) = threefry2x32(key, (0, 1))              // word pair 1 of split(key)
@@ -92,13 +93,4 @@ extern "C" int me_threefry_randint_u8(const void* key, void* out, long long n, v
   randint_u8_kernel<<<(unsigned)blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(key), static_cast<uint8_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Loads the kernel on the current device (CUDA loads kernels lazily, at
-// their first use), so that a first call does not pay for it
-// (aot.prefetch_async runs this while the weights load). Returns 0 or a
-// CUDA error.
-extern "C" int me_threefry_prepare() {
-  cudaFuncAttributes attr;
-  return static_cast<int>(cudaFuncGetAttributes(&attr, randint_u8_kernel));
 }

@@ -271,32 +271,3 @@ extern "C" int me_vit_scaled_residual(const void* x, const void* o, const void* 
     });
   });
 }
-
-// Loads every kernel on the current device (CUDA loads kernels lazily, at
-// their first use), so that a first call does not pay for it
-// (aot.prefetch_async runs this while the weights load). Returns 0 or the
-// first CUDA error.
-extern "C" int me_vit_elementwise_prepare() {
-  cudaFuncAttributes attr;
-  int rc = 0;
-  for (int a = 0; a < 3; ++a) {
-    rc = rc ? rc : with_type(a, [&](auto t) {
-      using T = typename decltype(t)::type;
-      return static_cast<int>(cudaFuncGetAttributes(&attr, vit_gelu_kernel<T>));
-    });
-    for (int b = 0; b < 3; ++b)
-      for (int c = 0; c < 3; ++c)
-        rc = rc ? rc : with_type(a, [&](auto tx) {
-          return with_type(b, [&](auto to) {
-            return with_type(c, [&](auto tl) {
-              using X = typename decltype(tx)::type;
-              using O = typename decltype(to)::type;
-              using L = typename decltype(tl)::type;
-              return static_cast<int>(
-                  cudaFuncGetAttributes(&attr, vit_scaled_residual_kernel<X, O, L>));
-            });
-          });
-        });
-  }
-  return rc;
-}

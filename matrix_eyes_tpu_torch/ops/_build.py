@@ -8,10 +8,20 @@ inside the package, named by a hash of the source, the shared headers
 library is never loaded. ptxas's report (registers, shared memory, spills
 per kernel) is kept beside each library (``ptxas_report``). Nothing here
 runs at import time: the package imports on a machine without CUDA.
+
+Every launch that ``check_launch`` passes is counted in one ledger,
+``ledger``, under (kernel, *key): the key is what the wrapper names the
+launch by (its shapes, dtypes, flags). The mesh's collectives count there
+too (``parallel.collectives``). A CUDA graph's replay runs no wrapper, so
+the graph cache (``aot``) adds a capture's counts again at every replay;
+a new wrapper needs no more than its key for its launches to be counted
+however they run. ``launches(kernel)`` reads one kernel's counts by key and
+``reset()`` clears them all.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -106,6 +116,25 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
-def check_launch(rc: int, kernel: str) -> None:
+ledger: collections.Counter = collections.Counter()  # (kernel, *key) -> launches
+
+
+def record(kernel: str, *key) -> None:
+    """Count one launch of ``kernel`` (or one collective) under ``key``."""
+    ledger[(kernel, *key)] += 1
+
+
+def check_launch(rc: int, kernel: str, *key) -> None:
+    """Raise unless the library returned 0 for the launch; else count it."""
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed with code {rc}")
+    record(kernel, *key)
+
+
+def launches(kernel: str) -> collections.Counter:
+    """``kernel``'s launches by key since the last ``reset``."""
+    return collections.Counter({k[1:]: n for k, n in ledger.items() if k[0] == kernel and n})
+
+
+def reset() -> None:
+    ledger.clear()

@@ -14,7 +14,6 @@ The TPU's lane and VMEM gates are not ported.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import math
@@ -39,16 +38,7 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Wt, R, bn, splits
         ctypes.c_void_p,                                        # stream
     ]),
-    "me_conv3x3_prepare": (ctypes.c_int, []),
 }
-
-
-def prepare() -> None:
-    """Build (if missing) and load the library, and load its kernels with
-    their shared-memory limits set on the current device: the one-time work
-    of a first call (``aot.prefetch_async``)."""
-    _build.check_launch(_build.load("conv3x3", _SIGNATURES).me_conv3x3_prepare(),
-                        "conv3x3 prepare")
 
 # output pixels per block, a band of R rows x Wt columns: the kernel's M tile
 # (TC_BM in csrc/conv3x3.cu, which rejects any other band)
@@ -145,7 +135,7 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(x, w, b, skip, skip2, relu_in):
+def _launch(key, x, w, b, skip, skip2, relu_in):
     B, H, W, Cin = x.shape
     Cout = w.shape[3]
     code = _build.dtype_code(x.dtype)
@@ -163,7 +153,7 @@ def _launch(x, w, b, skip, skip2, relu_in):
         rc = lib.me_conv3x3(ptr(x), ptr(w), ptr(b), ptr(skip), ptr(skip2), ptr(out),
                             ptr(workspace), B, H, W, Cin, Cout, int(relu_in), code,
                             p.wt, p.r, p.bn, p.splits, stream)
-    _build.check_launch(rc, "conv3x3")
+    _build.check_launch(rc, "conv3x3", *key)
     return out
 
 
@@ -195,13 +185,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
             raise ValueError("conv3x3 operands must share the input's device and dtype")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("conv3x3 needs contiguous, 16-byte aligned operands")
-    out = conv3x3_padded(_launch, x, w, b, skip, skip2, relu_in)
-    conv3x3.launches += 1
-    conv3x3.launches_by_shape[(B, H, W, Cin, Cout, x.dtype, bool(relu_in),
-                               (skip is not None) + (skip2 is not None), b is not None)] += 1
-    return out
-
-
-conv3x3.launches = 0
-# launches by (B, H, W, Cin, Cout, dtype, relu_in, residuals, bias)
-conv3x3.launches_by_shape = collections.Counter()
+    # counted by (B, H, W, Cin, Cout, dtype, relu_in, residuals, bias) before padding
+    key = (B, H, W, Cin, Cout, x.dtype, bool(relu_in),
+           (skip is not None) + (skip2 is not None), b is not None)
+    return conv3x3_padded(functools.partial(_launch, key), x, w, b, skip, skip2, relu_in)

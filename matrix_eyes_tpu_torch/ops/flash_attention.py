@@ -23,7 +23,6 @@ the bf16 path's code.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import Optional
 
@@ -53,19 +52,10 @@ _SIGNATURES = {
         ctypes.c_void_p,                                        # stream
     ]),
     "me_attention_scratch_floats": (ctypes.c_longlong, [ctypes.c_int] * 6),  # B N H D n_valid dtype
-    "me_attention_prepare": (ctypes.c_int, []),
     "me_attention_kv_path": (ctypes.c_int, [ctypes.c_int] * 3),  # D n_valid dtype
 }
 # me_attention_kv_path's answers: how a launch reads a head's keys and values
 _KV_PATHS = ("cuda_cores", "resident", "streamed")
-
-
-def prepare() -> None:
-    """Build (if missing) and load the library, and load its kernels with
-    their shared-memory limits set on the current device: the one-time work
-    of a first call (``aot.prefetch_async``)."""
-    _build.check_launch(_build.load("attention_qkv", _SIGNATURES).me_attention_prepare(),
-                        "attention_qkv prepare")
 
 
 def _scratch(lib, B: int, N: int, H: int, D: int, n_valid: int, code: int,
@@ -131,28 +121,11 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
         rc = lib.me_attention_qkv(qkv.data_ptr(), out.data_ptr(), _ptr(scratch), B, N,
                                   num_heads, D,
                                   n_valid, float(scale) * _LOG2E, code, stream)
-    _build.check_launch(rc, "attention_qkv")
-    count_launch(B, N, num_heads, D, qkv.dtype,
-                 _KV_PATHS[lib.me_attention_kv_path(D, n_valid, code)])
+    # counted by (B, N, heads, D, dtype, K/V path): under tensor parallelism a
+    # rank runs num_heads / model heads; the path is the library's (``kv_path``)
+    _build.check_launch(rc, "attention_qkv", B, N, num_heads, D, str(qkv.dtype).split(".")[-1],
+                        _KV_PATHS[lib.me_attention_kv_path(D, n_valid, code)])
     return out
-
-
-def count_launch(B: int, N: int, H: int, D: int, dtype: torch.dtype, path: str) -> None:
-    """Count one launch of ``attention_qkv``'s kernel: in all, by dtype, by
-    batch, and by (B, N, heads, D, dtype, K/V path), the path as the
-    library reports it (``kv_path``)."""
-    attention_qkv.launches += 1
-    attention_qkv.launches_by_dtype[dtype] += 1
-    attention_qkv.launches_by_batch[B] += 1
-    attention_qkv.launches_by_shape[(B, N, H, D, str(dtype).split(".")[-1], path)] += 1
-
-
-attention_qkv.launches = 0
-attention_qkv.launches_by_dtype = collections.Counter()
-attention_qkv.launches_by_batch = collections.Counter()  # B = 35 per photo in the patch ViT
-# (B, N, heads, D, dtype, path): under tensor parallelism a rank runs num_heads / model
-# heads; the path is ``kv_path``'s
-attention_qkv.launches_by_shape = collections.Counter()
 
 
 def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -197,8 +170,4 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
                                    _ptr(scratch), B, H, N, D, n_valid, float(scale) * _LOG2E, code, strides,
                                    stream)
     _build.check_launch(rc, "attention_flash")
-    attention_flash.launches += 1
     return out
-
-
-attention_flash.launches = 0

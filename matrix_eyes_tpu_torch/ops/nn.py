@@ -32,7 +32,6 @@ for the output rows it serves, bit for bit PyTorch's ``F.interpolate``
 
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import Optional
 
@@ -55,7 +54,6 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,               # x, o, ls dtypes
         ctypes.c_void_p,                                        # stream
     ]),
-    "me_vit_elementwise_prepare": (ctypes.c_int, []),
 }
 _RESAMPLE_SIGNATURES = {
     "me_resample_bilinear": (ctypes.c_int, [
@@ -65,20 +63,9 @@ _RESAMPLE_SIGNATURES = {
         ctypes.c_int,                                           # dtype
         ctypes.c_void_p,                                        # stream
     ]),
-    "me_resample_prepare": (ctypes.c_int, []),
 }
 # a chunk of the kernels' vector loads, elements: the residual's rows are whole chunks
 _VEC = 8
-
-
-def prepare() -> None:
-    """Build (if missing) and load the libraries, and load their kernels on
-    the current device: the one-time work of a first call
-    (``aot.prefetch_async``)."""
-    _build.check_launch(_build.load("vit_elementwise", _SIGNATURES).me_vit_elementwise_prepare(),
-                        "vit_elementwise prepare")
-    _build.check_launch(_build.load("resample", _RESAMPLE_SIGNATURES).me_resample_prepare(),
-                        "resample prepare")
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -166,14 +153,8 @@ def gelu_(x: torch.Tensor) -> torch.Tensor:
     lib = _build.load("vit_elementwise", _SIGNATURES)
     with torch.cuda.device(x.device):
         rc = lib.me_vit_gelu(x.data_ptr(), x.numel(), code, _stream(x.device))
-    _build.check_launch(rc, "gelu")
-    gelu_.launches += 1
-    gelu_.launches_by_shape[(*x.shape, _dtype_name(x))] += 1
+    _build.check_launch(rc, "gelu", *x.shape, _dtype_name(x))
     return x
-
-
-gelu_.launches = 0
-gelu_.launches_by_shape = collections.Counter()  # by (*shape, dtype)
 
 
 def scaled_residual_plain(x: torch.Tensor, o: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
@@ -205,14 +186,8 @@ def scaled_residual(x: torch.Tensor, o: torch.Tensor, ls: torch.Tensor) -> torch
         rc = lib.me_vit_scaled_residual(x.data_ptr(), o.data_ptr(), ls.data_ptr(),
                                         out.data_ptr(), x.numel(), d, *codes,
                                         _stream(x.device))
-    _build.check_launch(rc, "scaled_residual")
-    scaled_residual.launches += 1
-    scaled_residual.launches_by_shape[(*x.shape, *(_dtype_name(t) for t in (x, o, ls)))] += 1
+    _build.check_launch(rc, "scaled_residual", *x.shape, *(_dtype_name(t) for t in (x, o, ls)))
     return out
-
-
-scaled_residual.launches = 0
-scaled_residual.launches_by_shape = collections.Counter()  # by (*shape, x, o, ls dtypes)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -279,14 +254,8 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.me_resample_bilinear(x.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w, c,
                                       code, _stream(x.device))
-    _build.check_launch(rc, "resize_bilinear")
-    resize_bilinear.launches += 1
-    resize_bilinear.launches_by_shape[(b, h, w, c, out_h, out_w, _dtype_name(x))] += 1
+    _build.check_launch(rc, "resize_bilinear", b, h, w, c, out_h, out_w, _dtype_name(x))
     return out
-
-
-resize_bilinear.launches = 0
-resize_bilinear.launches_by_shape = collections.Counter()  # by (B, H, W, C, out_h, out_w, dtype)
 
 
 def patch_embed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, patch: int) -> torch.Tensor:

@@ -56,16 +56,7 @@ _SIGNATURES = {
         ctypes.c_longlong,                                      # elements
         ctypes.c_void_p,                                        # stream
     ]),
-    "me_threefry_prepare": (ctypes.c_int, []),
 }
-
-
-def prepare() -> None:
-    """Build (if missing) and load the library, and load its kernel on the
-    current device: the one-time work of a first call
-    (``aot.prefetch_async``)."""
-    _build.check_launch(_build.load("threefry", _SIGNATURES).me_threefry_prepare(),
-                        "threefry prepare")
 
 
 def prng_key(seed: int) -> Tuple[int, int]:
@@ -165,8 +156,4 @@ def randint_u8(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
         stream = torch.cuda.current_stream(key.device).cuda_stream
         rc = lib.me_threefry_randint_u8(key.data_ptr(), out.data_ptr(), n, stream)
     _build.check_launch(rc, "threefry")
-    randint_u8.launches += 1
     return out
-
-
-randint_u8.launches = 0

@@ -30,16 +30,7 @@ _SIGNATURES = {
         ctypes.c_void_p,                                        # stream
     ]),
     "me_linker_scan_scratch_words": (ctypes.c_longlong, [ctypes.c_int] * 3),  # H, W, pw
-    "me_linker_scan_prepare": (ctypes.c_int, []),
 }
-
-
-def prepare() -> None:
-    """Build (if missing) and load the library, and load its kernel on the
-    current device: the one-time work of a first call
-    (``aot.prefetch_async``)."""
-    _build.check_launch(_build.load("linker_scan", _SIGNATURES).me_linker_scan_prepare(),
-                        "linker_scan prepare")
 
 
 def doubling_iterations(width: int, pw: int, win: int) -> int:
@@ -101,8 +92,4 @@ def linker_scan(shift: torch.Tensor, noise: torch.Tensor, pw: int, win: int) -> 
                                 None if scratch is None else scratch.data_ptr(),
                                 H, W, noise.shape[1], pw, win, stream)
     _build.check_launch(rc, "linker_scan")
-    linker_scan.launches += 1
     return out
-
-
-linker_scan.launches = 0

@@ -30,34 +30,23 @@ from typing import Any, Dict, List
 
 import torch
 
+from matrix_eyes_tpu_torch.ops import _build
+
+_KERNELS = ("attention_qkv", "conv3x3", "linker_scan", "attention_flash", "threefry", "gelu",
+            "scaled_residual", "resize_bilinear")
+
 
 def _kernel_counts() -> Dict[str, Any]:
-    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-    from matrix_eyes_tpu_torch.ops.prng import randint_u8
-    from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
-
+    """This rank's launches by kernel since the ledger's last ``reset``,
+    attention_qkv's by shape and conv3x3's by batch."""
     conv_by_batch = collections.Counter()
-    for shape, n in conv3x3.launches_by_shape.items():
+    for shape, n in _build.launches("conv3x3").items():
         conv_by_batch[shape[0]] += n
-    return {"attention_qkv": attention_qkv.launches, "conv3x3": conv3x3.launches,
-            "linker_scan": linker_scan.launches, "attention_flash": attention_flash.launches,
-            "threefry": randint_u8.launches,
-            "attention_by_shape": {str(k): v for k, v in attention_qkv.launches_by_shape.items()},
-            "conv3x3_by_batch": dict(conv_by_batch)}
-
-
-def _reset_kernel_counts() -> None:
-    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-    from matrix_eyes_tpu_torch.ops.prng import randint_u8
-    from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
-
-    attention_qkv.launches = conv3x3.launches = linker_scan.launches = 0
-    attention_flash.launches = randint_u8.launches = 0
-    for counter in (attention_qkv.launches_by_dtype, attention_qkv.launches_by_batch,
-                    attention_qkv.launches_by_shape, conv3x3.launches_by_shape):
-        counter.clear()
+    counts: Dict[str, Any] = {k: _build.launches(k).total() for k in _KERNELS}
+    counts["attention_by_shape"] = {str(k): v
+                                    for k, v in _build.launches("attention_qkv").items()}
+    counts["conv3x3_by_batch"] = dict(conv_by_batch)
+    return counts
 
 
 def _sync(device: torch.device) -> None:
@@ -154,8 +143,7 @@ def forward_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     img = case["img"].to(mesh.device)
     walls, out = [], {}
     for i in range(case.get("runs", 1)):
-        collectives.reset()
-        _reset_kernel_counts()
+        _build.reset()
         _sync(mesh.device)
         t0 = time.perf_counter()
         with patch_sharded(mesh):
@@ -238,8 +226,7 @@ def run_entry_points(mesh, cfg, weights: str, calls: List[Dict[str, Any]]) -> Di
     session, results = None, []
     modes = aot.mesh_cache(mesh).modes
     for call in calls:
-        collectives.reset()
-        _reset_kernel_counts()
+        _build.reset()
         modes.clear()
         out = {}
         t0 = time.perf_counter()
@@ -335,8 +322,7 @@ def run_graph_cases(mesh, cases: List[Dict[str, Any]], graphs: str = "cuda") -> 
                 return pipeline.forward_batch(cfg, local, img, f_norms, m)
 
         def counted():
-            collectives.reset()
-            _reset_kernel_counts()
+            _build.reset()
             _sync(m.device)
             t0 = time.perf_counter()
             out = forward()

@@ -4,12 +4,13 @@ their counts.
 On the TPU, XLA inserts these collectives and the JAX package reads them
 off the compiled program (``parallel/production_check.py``, an HLO text
 check). The port calls them itself through ``torch.distributed``: NCCL
-between cards, gloo on the CPU. Each call counts its kind, its calls and
-the bytes of its result on this rank (``counts``, ``result_bytes``), as a
-kernel wrapper counts its launches, and an all-gather records its result
-shape (``gather_shapes``); ``check_forward`` holds a forward's counts to
-the invariants the JAX package checks in the HLO. An axis of size 1 needs
-no collective: the call returns its input and counts nothing.
+between cards, gloo on the CPU. Each call is counted in the kernels'
+launch ledger (``ops._build.ledger``) under its kind, with its result's
+shape and dtype on this rank, as a kernel wrapper counts its launches;
+``stats`` and ``gather_shapes`` read calls, bytes and shapes from it, and
+``check_forward`` holds a forward's counts to the invariants the JAX
+package checks in the HLO. An axis of size 1 needs no collective: the call
+returns its input and counts nothing.
 
 The mesh has exactly the two axes (data, model) and ``Mesh.model`` is the
 one model-parallel degree every caller reads, so the JAX check's fault of
@@ -31,27 +32,35 @@ kind, rather than being left out of the graph.
 
 from __future__ import annotations
 
-import collections
+import math
 from typing import List
 
 import torch
 
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.parallel.sharding import Mesh
 
-counts: collections.Counter = collections.Counter()        # kind -> calls
-result_bytes: collections.Counter = collections.Counter()  # kind -> bytes
-gather_shapes: List[tuple] = []                            # all-gather result shapes
-
-
-def reset() -> None:
-    counts.clear()
-    result_bytes.clear()
-    gather_shapes.clear()
+_KINDS = ("all-reduce", "all-gather", "broadcast")
 
 
 def stats() -> dict:
-    """{kind: {"calls": n, "bytes": b}} since the last ``reset``."""
-    return {kind: {"calls": counts[kind], "bytes": result_bytes[kind]} for kind in counts}
+    """{kind: {"calls": n, "bytes": b}} since the ledger's last ``reset``,
+    for each kind called."""
+    out = {}
+    for kind in _KINDS:
+        calls = _build.launches(kind)
+        if calls:
+            out[kind] = {"calls": calls.total(),
+                         "bytes": sum(n * math.prod(shape) * dtype.itemsize
+                                      for (shape, dtype), n in calls.items())}
+    return out
+
+
+def gather_shapes() -> List[tuple]:
+    """The all-gathers' result shapes since the ledger's last ``reset``, one
+    per call."""
+    return [shape for (shape, _dtype), n in _build.launches("all-gather").items()
+            for _ in range(n)]
 
 
 def _group(mesh: Mesh, axis: str):
@@ -64,8 +73,7 @@ def _group(mesh: Mesh, axis: str):
 
 
 def _count(kind: str, result: torch.Tensor) -> None:
-    counts[kind] += 1
-    result_bytes[kind] += result.numel() * result.element_size()
+    _build.record(kind, tuple(result.shape), result.dtype)
 
 
 def _staged(mesh: Mesh, t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -111,7 +119,6 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Te
     dist.all_gather(parts, buf, group=group)
     out = torch.cat(parts).to(t.device)
     _count("all-gather", out)
-    gather_shapes.append(tuple(out.shape))
     return out
 
 
@@ -132,8 +139,8 @@ def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
 
 def check_forward(cfg, mesh: Mesh, batch: int, n_vits: int = 3, forwards: int = 1) -> dict:
     """Hold the counts of ``forwards`` forwards of ``batch`` images each
-    (counted from a ``reset`` just before them) to the sharded layout's
-    invariants, the run-time form of the JAX package's HLO check; raise
+    (counted from the ledger's ``reset`` just before them) to the sharded
+    layout's invariants, the run-time form of the JAX package's HLO check; raise
     RuntimeError on a broken one. ``n_vits``: 3 with the FOV head, 2
     without.
 
@@ -149,24 +156,26 @@ def check_forward(cfg, mesh: Mesh, batch: int, n_vits: int = 3, forwards: int = 
     n_patches = 35 * batch
     padded = -(-n_patches // mesh.data) * mesh.data
     want_reduces = forwards * 2 * cfg.depth * n_vits if mesh.model > 1 else 0
+    reduces = _build.launches("all-reduce").total()
+    gathers = gather_shapes()
     problems = []
-    if counts["all-reduce"] != want_reduces:
-        problems.append(f"{counts['all-reduce']} all-reduces, expected {want_reduces}")
-    token_gathers = [s for s in gather_shapes if cfg.seq_len in s[1:]]
+    if reduces != want_reduces:
+        problems.append(f"{reduces} all-reduces, expected {want_reduces}")
+    token_gathers = [s for s in gathers if cfg.seq_len in s[1:]]
     if token_gathers:
         problems.append(f"all-gathers with a token-sized axis: {token_gathers}")
     s = cfg.tokens_per_side
-    merge = [g for g in gather_shapes if g[1:3] == (s, s) and g[0] == padded]
+    merge = [g for g in gathers if g[1:3] == (s, s) and g[0] == padded]
     want_merge = 3 * forwards if mesh.data > 1 else 0
     if len(merge) != want_merge:
         problems.append(f"{len(merge)} patch-merge all-gathers of {padded} rows, expected "
-                        f"{want_merge} (all-gathers: {gather_shapes})")
+                        f"{want_merge} (all-gathers: {gathers})")
     # a sharded batch gathers its inverse depth, and its FOV where the head ran
     want_gathers = want_merge + forwards * ((2 if n_vits == 3 else 1)
                                             if batch_is_sharded(batch, mesh) else 0)
-    if counts["all-gather"] != want_gathers:
-        problems.append(f"{counts['all-gather']} all-gathers, expected {want_gathers}")
+    if len(gathers) != want_gathers:
+        problems.append(f"{len(gathers)} all-gathers, expected {want_gathers}")
     if problems:
         raise RuntimeError("sharded forward broke the layout's invariants: " + "; ".join(problems))
     return {"collectives": stats(), "patch_rows_per_rank": padded // mesh.data,
-            "gather_shapes": list(gather_shapes)}
+            "gather_shapes": gathers}

@@ -66,9 +66,7 @@ def run_dav2(batch: int, out: str, tiny: bool = False) -> dict:
     from eyebench.harness import architecture
     from eyebench.reference import depth_anything_v2 as ref
     from matrix_eyes_tpu_torch import aot, api
-    from matrix_eyes_tpu_torch.ops import nn
-    from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-    from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
+    from matrix_eyes_tpu_torch.ops import _build
 
     config = json.load(open(os.path.join(ROOT, "eyebench", "configs",
                                          "depth_anything_v2-l-bf16.json")))
@@ -95,17 +93,16 @@ def run_dav2(batch: int, out: str, tiny: bool = False) -> dict:
     res = {"card": _card(), "torch": torch.__version__, "batch": batch}
     outs = []
     for _ in range(3):
-        attention_qkv.launches_by_shape.clear()
-        conv3x3.launches_by_shape.clear()
-        nn.resize_bilinear.launches_by_shape.clear()
+        _build.reset()
         outs.append(me.inverse_depth_batch(frames))
     res["modes"] = [m for _n, m in list(aot.cache().modes)[-6:]]
     res["shape"] = list(outs[-1].shape)
     res["replay_equals_eager"] = bool(np.array_equal(outs[0], outs[2]))
-    res["attention_by_shape"] = {str(k): v for k, v in attention_qkv.launches_by_shape.items()}
-    res["conv3x3_by_shape"] = {str(k[:5] + k[6:]): v for k, v in conv3x3.launches_by_shape.items()}
+    res["attention_by_shape"] = {str(k): v for k, v in _build.launches("attention_qkv").items()}
+    res["conv3x3_by_shape"] = {str(k[:5] + k[6:]): v
+                               for k, v in _build.launches("conv3x3").items()}
     res["resize_bilinear_by_shape"] = {str(k): v
-                                       for k, v in nn.resize_bilinear.launches_by_shape.items()}
+                                       for k, v in _build.launches("resize_bilinear").items()}
     if not tiny:
         torch.cuda.synchronize()
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -36,10 +36,7 @@ from matrix_eyes_tpu_torch import cli as tcli
 from matrix_eyes_tpu_torch.api import MatrixEyes
 from matrix_eyes_tpu_torch.config import TINY, RuntimeConfig
 from matrix_eyes_tpu_torch.models import depth_pro as tdepth_pro
-from matrix_eyes_tpu_torch.ops import colormap, resize
-from matrix_eyes_tpu_torch.ops.conv3x3 import conv3x3
-from matrix_eyes_tpu_torch.ops.flash_attention import attention_flash, attention_qkv
-from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan
+from matrix_eyes_tpu_torch.ops import _build, colormap, resize
 from matrix_eyes_tpu_torch.output.depthmap import ImageOutputFormat
 from matrix_eyes_tpu_torch.parallel import collectives
 from matrix_eyes_tpu_torch.parallel.sharding import Mesh
@@ -72,10 +69,12 @@ class FakeGraphs(aot.HostGraphs):
 
 @pytest.fixture
 def counters():
-    """The wrappers' launch counters, restored after the test."""
-    snap = aot._LaunchCounters.snapshot()
+    """The launch ledger, empty for the test and restored after it."""
+    snap = collections.Counter(_build.ledger)
+    _build.reset()
     yield
-    aot._LaunchCounters.restore(snap)
+    _build.reset()
+    _build.ledger.update(snap)
 
 
 @pytest.fixture
@@ -180,22 +179,23 @@ def test_eager_calls_run_fn_every_time(mode, monkeypatch):
 
 # -- capture and replay ----------------------------------------------------------------
 
+_ATTENTION = (35, 577, 16, 64, "bfloat16", "resident")
+_CONV = (1, 768, 768, 256, 256, torch.bfloat16, True, 2, True)
+_GATHER = (36, 24, 24, 1024)
+
+
 def _launch_everything():
     """What the kernel wrappers count when their kernels launch, and the
-    collectives when a mesh's forward calls them."""
-    attention_qkv.launches += 1
-    attention_qkv.launches_by_dtype[torch.bfloat16] += 1
-    attention_qkv.launches_by_batch[35] += 1
-    attention_qkv.launches_by_shape[(35, 577, 16, 64, "bfloat16")] += 1
-    attention_flash.launches += 1
-    conv3x3.launches += 2
-    conv3x3.launches_by_shape[(1, 768, 768, 256, 256, torch.bfloat16, True, 2, True)] += 2
-    linker_scan.launches += 1
-    collectives.counts["all-reduce"] += 2
-    collectives.result_bytes["all-reduce"] += 2 * 4096
-    collectives.counts["all-gather"] += 1
-    collectives.result_bytes["all-gather"] += 512
-    collectives.gather_shapes.append((36, 24, 24, 1024))
+    collectives when a mesh's forward calls them (results on the meta
+    device: a shape and a dtype, no memory)."""
+    _build.check_launch(0, "attention_qkv", *_ATTENTION)
+    _build.check_launch(0, "attention_flash")
+    for _ in range(2):
+        _build.check_launch(0, "conv3x3", *_CONV)
+    _build.check_launch(0, "linker_scan")
+    for _ in range(2):
+        collectives._count("all-reduce", torch.empty(1024, device="meta"))
+    collectives._count("all-gather", torch.empty(_GATHER, dtype=torch.bfloat16, device="meta"))
 
 
 @pytest.mark.parametrize("replays", [1, 5])
@@ -209,29 +209,64 @@ def test_replays_add_the_capture_counts(replays, counters, graphs_on):
         _launch_everything()
         return x * 2
 
-    before = aot._LaunchCounters.snapshot()
     for _ in range(2 + replays):
         torch.testing.assert_close(cache.call("fwd_fov", fn, (_X,)), _X * 2)
     # the eager call, the capture call's eager run, then one capture that
     # counts nothing itself; every replay adds what the capture recorded
     assert len(calls) == 3 and backend.captures == 1 and backend.replays == replays
     runs = 2 + replays
-    delta = aot._LaunchCounters.delta(before, aot._LaunchCounters.snapshot())
-    assert delta[0] == attention_qkv.launches - before[0] == runs
-    assert attention_qkv.launches_by_dtype[torch.bfloat16] - before[1][torch.bfloat16] == runs
-    assert attention_qkv.launches_by_batch[35] - before[2][35] == runs
-    assert delta[3] == collections.Counter({(35, 577, 16, 64, "bfloat16"): runs})
-    assert attention_flash.launches - before[4] == runs
-    assert conv3x3.launches - before[5] == 2 * runs
-    assert sum(delta[6].values()) == 2 * runs
-    assert linker_scan.launches - before[7] == runs
+    assert _build.launches("attention_qkv") == collections.Counter({_ATTENTION: runs})
+    assert _build.launches("attention_flash") == collections.Counter({(): runs})
+    assert _build.launches("conv3x3") == collections.Counter({_CONV: 2 * runs})
+    assert _build.launches("linker_scan").total() == runs
     # the collectives of a mesh's forward: calls, bytes and the gather
-    # shapes a replay appends as the eager call did
-    assert delta[8] == collections.Counter({"all-reduce": 2 * runs, "all-gather": runs})
-    assert delta[9] == collections.Counter({"all-reduce": 2 * 4096 * runs,
-                                            "all-gather": 512 * runs})
-    assert delta[10] == [(36, 24, 24, 1024)] * runs
-    assert collectives.gather_shapes[:len(before[10])] == before[10]
+    # shapes a replay adds as the eager call did
+    assert collectives.stats() == {
+        "all-reduce": {"calls": 2 * runs, "bytes": 2 * 4096 * runs},
+        "all-gather": {"calls": runs, "bytes": 36 * 24 * 24 * 1024 * 2 * runs}}
+    assert collectives.gather_shapes() == [_GATHER] * runs
+
+
+def test_a_kernel_the_cache_never_heard_of_is_counted_on_replay(counters, graphs_on):
+    backend = FakeGraphs()
+    cache = aot.GraphCache(backend)
+
+    def fn(x):
+        _build.check_launch(0, "a_kernel_added_later", tuple(x.shape))
+        return x + 1
+
+    for i in range(5):
+        cache.call("fwd", fn, (_X,))
+        assert _build.launches("a_kernel_added_later") == collections.Counter({((4, 3),): i + 1})
+    assert backend.captures == 1 and backend.replays == 3
+
+
+def test_a_failed_launch_is_not_counted(counters):
+    _build.check_launch(0, "conv3x3", *_CONV)
+    before = collections.Counter(_build.ledger)
+    with pytest.raises(RuntimeError, match="conv3x3 launch failed with code 700"):
+        _build.check_launch(700, "conv3x3", *_CONV)
+    assert _build.ledger == before
+
+
+def test_reset_clears_every_kernel_and_collective(counters):
+    from matrix_eyes_tpu_torch.parallel import checks
+
+    kernels = ("attention_qkv", "attention_flash", "conv3x3", "linker_scan", "threefry",
+               "gelu", "scaled_residual", "resize_bilinear")
+    for kernel in kernels:
+        _build.check_launch(0, kernel, 1)
+    collectives._count("all-reduce", torch.empty(1024, device="meta"))
+    collectives._count("all-gather", torch.empty(_GATHER, device="meta"))
+    counts = checks._kernel_counts()
+    assert {k: counts[k] for k in kernels} == dict.fromkeys(kernels, 1)
+    assert set(collectives.stats()) == {"all-reduce", "all-gather"}
+    _build.reset()
+    counts = checks._kernel_counts()
+    assert {k: counts[k] for k in kernels} == dict.fromkeys(kernels, 0)
+    assert counts["attention_by_shape"] == counts["conv3x3_by_batch"] == {}
+    assert collectives.stats() == {} and collectives.gather_shapes() == []
+    assert not _build.ledger
 
 
 def test_replay_copies_inputs_and_clones_outputs(graphs_on):
@@ -445,23 +480,6 @@ def test_a_pool_whose_graphs_were_all_freed_is_not_captured_into(monkeypatch):
     assert pools == [1, 1, 1, 2]
 
 
-def test_a_failed_prefetch_raises_at_the_first_program(monkeypatch, graphs_on):
-    from concurrent.futures import Future
-
-    failed = Future()
-    failed.set_exception(RuntimeError("nvcc failed"))
-    monkeypatch.setattr(aot, "_prefetch", failed)
-    cache = aot.GraphCache(FakeGraphs())
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        cache.call("preprocess", lambda x: x, (_X,))
-    assert aot._prefetch is None
-    cache.call("preprocess", lambda x: x, (_X,))  # raised once
-
-
-def test_prefetch_does_nothing_on_the_cpu():
-    assert aot.prefetch_async("cpu") is None
-
-
 # -- the device constants --------------------------------------------------------------
 
 def test_constants_reach_the_device_once(monkeypatch):
@@ -640,23 +658,20 @@ def test_attention_counter_tells_the_kv_path(counters, n, d, dtype, path):
     from matrix_eyes_tpu_torch.ops import flash_attention
 
     assert path in flash_attention._KV_PATHS
-    before = collections.Counter(attention_qkv.launches_by_shape)
-    flash_attention.count_launch(8, n, 16, d, dtype, path)
-    added = collections.Counter(attention_qkv.launches_by_shape) - before
-    assert added == collections.Counter({(8, n, 16, d, str(dtype).split(".")[-1], path): 1})
+    _build.check_launch(0, "attention_qkv", 8, n, 16, d, str(dtype).split(".")[-1], path)
+    assert _build.launches("attention_qkv") == collections.Counter(
+        {(8, n, 16, d, str(dtype).split(".")[-1], path): 1})
 
 
 def test_the_capture_log_names_the_kv_path(counters, graphs_on, monkeypatch, capsys):
     """``MATRIX_EYES_AOT_LOG``'s line of a capture lists its attention
     launches with their K/V path."""
-    from matrix_eyes_tpu_torch.ops import flash_attention
-
     monkeypatch.setenv("MATRIX_EYES_AOT_LOG", "1")
     cache = aot.GraphCache(FakeGraphs())
 
     def fn(x):
         for _ in range(24):
-            flash_attention.count_launch(8, 2443, 16, 64, torch.bfloat16, "streamed")
+            _build.check_launch(0, "attention_qkv", 8, 2443, 16, 64, "bfloat16", "streamed")
         return x * 2
 
     for _ in range(2):

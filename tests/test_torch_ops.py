@@ -21,6 +21,7 @@ from matrix_eyes_tpu.ops.attention import attention_xla as j_attention_xla
 from matrix_eyes_tpu.ops.conv3x3 import conv3x3_pallas
 from matrix_eyes_tpu.ops.flash_attention import attention_flash as j_attention_flash
 from matrix_eyes_tpu.ops.flash_attention import attention_flash_qkv
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.ops import colormap as tcolormap
 from matrix_eyes_tpu_torch.ops import nn as tnn
 from matrix_eyes_tpu_torch.ops import resize as tresize
@@ -120,11 +121,11 @@ def test_conv3x3_unaligned_matches_jax_conv(cin, cout, relu_in, with_skip):
 def test_wrappers_take_only_cpu_or_cuda_tensors():
     # a CPU tensor runs the plain version and counts no launch; any other
     # device raises instead of falling back
-    before = (attention_qkv.launches, attention_flash.launches, conv3x3.launches)
+    before = dict(_build.ledger)
     attention_qkv(torch.zeros(1, 5, 3 * 2 * 8), 2, 0.5)
     attention_flash(*(torch.zeros(1, 2, 5, 8) for _ in range(3)), 0.5)
     conv3x3(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8, 4))
-    assert (attention_qkv.launches, attention_flash.launches, conv3x3.launches) == before
+    assert dict(_build.ledger) == before
     with pytest.raises(ValueError):
         attention_qkv(torch.zeros(1, 5, 48, device="meta"), 2, 0.5)
     with pytest.raises(ValueError):

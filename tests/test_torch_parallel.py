@@ -42,6 +42,7 @@ from matrix_eyes_tpu_torch.models import vit as tvit
 from matrix_eyes_tpu_torch.models.init import init_params as t_init_params
 from matrix_eyes_tpu_torch.models.spec import tree_leaves, tree_map
 from matrix_eyes_tpu_torch.io.image import load_source_image
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.ops.quant import quantize_params
 from matrix_eyes_tpu_torch.parallel import collectives, launch
 from matrix_eyes_tpu_torch.parallel import sharding as tsharding
@@ -386,12 +387,11 @@ def test_collectives_mid_2x2(world_2x2):
 
 
 def test_check_forward_flags_a_token_gather():
-    collectives.reset()
-    collectives.gather_shapes.append((4, MID.seq_len, MID.embed_dim))
-    collectives.counts["all-gather"] += 1
+    _build.reset()
+    collectives._count("all-gather", torch.empty(4, MID.seq_len, MID.embed_dim, device="meta"))
     with pytest.raises(RuntimeError, match="token-sized"):
         collectives.check_forward(MID, tsharding.Mesh(data=1, model=1), 1)
-    collectives.reset()
+    _build.reset()
 
 
 def test_sharded_tiny_4x2_matches_jax(tiny, world_8):

@@ -21,6 +21,7 @@ tests hold:
   no other reader claims.
 """
 
+import collections
 import os
 import re
 
@@ -32,7 +33,7 @@ from matrix_eyes_tpu_torch import aot
 from matrix_eyes_tpu_torch.config import DAV2_TINY
 from matrix_eyes_tpu_torch.models import depth_anything
 from matrix_eyes_tpu_torch.models.init import init_params
-from matrix_eyes_tpu_torch.ops import nn
+from matrix_eyes_tpu_torch.ops import _build, nn
 
 SOURCE = os.path.join(os.path.dirname(nn.__file__), os.pardir, "csrc", "resample.cu")
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
@@ -99,9 +100,9 @@ def test_align_corners_keeps_the_corners():
 
 
 def test_the_cpu_takes_the_plain_path_and_counts_nothing():
-    before = (nn.resize_bilinear.launches, dict(nn.resize_bilinear.launches_by_shape))
+    before = dict(_build.ledger)
     nn.resize_bilinear(torch.ones(1, 3, 4, 8, dtype=torch.bfloat16), 5, 7)
-    assert (nn.resize_bilinear.launches, dict(nn.resize_bilinear.launches_by_shape)) == before
+    assert dict(_build.ledger) == before
 
 
 @pytest.mark.parametrize("bad", [
@@ -115,29 +116,42 @@ def test_the_wrapper_rejects_what_the_kernel_does_not_take(bad):
         bad()
 
 
-def test_graph_replays_count_the_launches():
-    fields = aot._LaunchCounters._fields()
-    assert (nn.resize_bilinear, "launches") in fields
-    assert (nn.resize_bilinear, "launches_by_shape") in fields
+_KEY = (8, 19, 33, 256, 37, 66, "bfloat16")
 
 
-def test_a_replay_adds_the_captured_launches():
-    # what a capture records and a replay adds again, as aot.GraphCache does
-    fields = aot._LaunchCounters._fields()
-    before = aot._LaunchCounters.snapshot()
-    launches = before[fields.index((nn.resize_bilinear, "launches"))]
-    by_shape = before[fields.index((nn.resize_bilinear, "launches_by_shape"))]
-    key = (8, 19, 33, 256, 37, 66, "bfloat16")
-    nn.resize_bilinear.launches += 5
-    nn.resize_bilinear.launches_by_shape[key] += 5
-    captured = aot._LaunchCounters.delta(before, aot._LaunchCounters.snapshot())
-    aot._LaunchCounters.restore(before)
-    try:
-        aot._LaunchCounters.add(captured)
-        assert nn.resize_bilinear.launches - launches == 5
-        assert nn.resize_bilinear.launches_by_shape - by_shape == {key: 5}
-    finally:
-        aot._LaunchCounters.restore(before)
+def _resample_counts(calls, launches):
+    """``resize_bilinear``'s launches added to the ledger by ``calls`` calls
+    of a program that counts ``launches`` of them at ``_KEY``, as the
+    wrapper counts its launches on the card, through a graph cache (eager,
+    capture, then replays); the ledger is left as it was."""
+    cache = aot.GraphCache(aot.HostGraphs())
+    before = collections.Counter(_build.ledger)
+
+    def program(x):
+        for _ in range(launches):
+            _build.check_launch(0, "resize_bilinear", *_KEY)
+        return x
+
+    for _ in range(calls):
+        cache.call("dav2_fwd_b8", program, (torch.ones(2),))
+    added = _build.ledger - before
+    _build.ledger.subtract(added)
+    return [mode for _name, mode in cache.modes], added
+
+
+def test_graph_replays_count_the_launches(monkeypatch):
+    monkeypatch.delenv("MATRIX_EYES_AOT", raising=False)
+    modes, added = _resample_counts(3, 1)
+    assert modes == ["eager", "capture", "replay"]
+    assert added == collections.Counter({("resize_bilinear", *_KEY): 3})
+
+
+def test_a_replay_adds_the_captured_launches(monkeypatch):
+    # the five resamplings of a forward, added again by each replay
+    monkeypatch.delenv("MATRIX_EYES_AOT", raising=False)
+    modes, added = _resample_counts(5, 5)
+    assert modes.count("replay") == 3
+    assert added == collections.Counter({("resize_bilinear", *_KEY): 25})
 
 
 @pytest.mark.parametrize("hw", [(70, 112), (112, 70)])

@@ -26,6 +26,7 @@ from matrix_eyes_tpu.ops.stereogram_kernel import linker_scan_tpu
 from matrix_eyes_tpu.output import depthmap as jdepthmap
 from matrix_eyes_tpu.output import png as jpng
 from matrix_eyes_tpu_torch import cli as tcli
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.ops import stereogram as tst
 from matrix_eyes_tpu_torch.ops.stereogram_kernel import linker_scan, linker_scan_plain
 from matrix_eyes_tpu_torch.output import depthmap as tdepthmap
@@ -120,9 +121,9 @@ def test_linker_scan_plain_bit_exact(H, W, amplitude):
                                    interpret=True)), want)
     args = (torch.from_numpy(shift), torch.from_numpy(noise), pw, win)
     np.testing.assert_array_equal(linker_scan_plain(*args).numpy(), want)
-    before = linker_scan.launches
+    before = dict(_build.ledger)
     np.testing.assert_array_equal(linker_scan(*args).numpy(), want)
-    assert linker_scan.launches == before  # the CPU path launches nothing
+    assert dict(_build.ledger) == before  # the CPU path launches nothing
 
 
 @pytest.mark.parametrize("H,W,amplitude", [

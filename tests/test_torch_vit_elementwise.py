@@ -19,6 +19,7 @@ there. Here the wrappers run their plain versions, and these tests hold:
   source's explicit roundings.
 """
 
+import collections
 import dataclasses
 import math
 import os
@@ -32,7 +33,7 @@ from matrix_eyes_tpu_torch import aot
 from matrix_eyes_tpu_torch.config import TINY, parse_dtype_policy
 from matrix_eyes_tpu_torch.models import depth_pro, vit
 from matrix_eyes_tpu_torch.models.init import init_params
-from matrix_eyes_tpu_torch.ops import nn
+from matrix_eyes_tpu_torch.ops import _build, nn
 from matrix_eyes_tpu_torch.ops.flash_attention import attention_qkv
 from matrix_eyes_tpu_torch.ops.quant import dequantize_weight, is_quantized_blocks, qlinear
 from matrix_eyes_tpu_torch.pt.convert import place_params
@@ -148,14 +149,12 @@ def test_the_kernel_source_rounds_twice():
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu():
-    before = (nn.gelu_.launches, dict(nn.gelu_.launches_by_shape),
-              nn.scaled_residual.launches, dict(nn.scaled_residual.launches_by_shape))
+    before = dict(_build.ledger)
     nn.gelu_(torch.ones(2, 8, dtype=torch.bfloat16))
     nn.gelu(torch.ones(2, 8))
     nn.scaled_residual(torch.ones(2, 8), torch.ones(2, 8, dtype=torch.bfloat16),
                        torch.ones(8, dtype=torch.bfloat16))
-    assert (nn.gelu_.launches, dict(nn.gelu_.launches_by_shape), nn.scaled_residual.launches,
-            dict(nn.scaled_residual.launches_by_shape)) == before
+    assert dict(_build.ledger) == before
 
 
 @pytest.mark.parametrize("bad", [
@@ -172,10 +171,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         bad()
 
 
-def test_graph_replays_count_the_launches():
-    fields = aot._LaunchCounters._fields()
-    for wrapper in (nn.gelu_, nn.scaled_residual):
-        assert (wrapper, "launches") in fields and (wrapper, "launches_by_shape") in fields
+def test_graph_replays_count_the_launches(monkeypatch):
+    # a ViT block's launches as the wrappers count them on the card, through
+    # the graph cache: eager, capture, replay each count one block
+    monkeypatch.delenv("MATRIX_EYES_AOT", raising=False)
+    cache = aot.GraphCache(aot.HostGraphs())
+    before = collections.Counter(_build.ledger)
+
+    def block(x):
+        _build.check_launch(0, "gelu", 35, 577, 4096, "bfloat16")
+        for _ in range(2):
+            _build.check_launch(0, "scaled_residual", 35, 577, 1024, "bfloat16", "bfloat16",
+                                "bfloat16")
+        return x
+
+    for _ in range(3):
+        cache.call("fwd_fnorm", block, (torch.ones(2),))
+    assert [mode for _name, mode in cache.modes] == ["eager", "capture", "replay"]
+    added = _build.ledger - before
+    _build.ledger.subtract(added)
+    assert added == collections.Counter({
+        ("gelu", 35, 577, 4096, "bfloat16"): 3,
+        ("scaled_residual", 35, 577, 1024, "bfloat16", "bfloat16", "bfloat16"): 6})
 
 
 # -- the block, before and after ------------------------------------------------------
