@@ -181,8 +181,8 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    streamed K/V ring, the DPT head's 20 conv3x3 launches by shape
    (``DAV2_CONVS``; phase 3 holds each shape against its plain version), 24
    gelu and 48 scaled_residual launches, the 5 resize_bilinear launches by
-   shape (``DAV2_RESAMPLES``), a finite (8, 518, 924) result, the replay
-   equal to the eager call bit for bit;
+   shape (``DAV2_RESAMPLES``), 8 uploads through pinned memory, a finite
+   (8, 518, 924) result, the replay equal to the eager call bit for bit;
 21. Depth Anything V2's bilinear resampling (``csrc/resample.cu``,
    ``ops/nn.py::resize_bilinear``) against ``F.interpolate`` (its plain
    version, ``resize_bilinear_plain``), bit for bit, at ``RESAMPLE_SHAPES``:
@@ -191,7 +191,16 @@ Phases, each a plain call whose failure ends the run with a non-zero exit:
    misaligned input, downsampling, one-pixel inputs and outputs, a copy;
    at the timed shapes the kernel's time by CUDA events and by the
    profiler, its byte bound at 3.35 TB/s (the input read once, the output
-   written once) and ``F.interpolate``'s time.
+   written once) and ``F.interpolate``'s time;
+22. the photo's upload (``pipeline.upload``) at a 12 MP photo's and a
+   1080p frame's shape (``UPLOAD_SHAPES``): the pinned path bit-equal to
+   ``torch.tensor(rgb, device=...)`` for a contiguous, a read-only and a
+   strided array, counted once as ("upload", "pinned"); warm, the host's
+   staging copy into pinned memory (``pipeline.stage``, the native
+   work-sharing copy; PyTorch's OpenMP copy and numpy's assignment beside
+   it), the pinned copy to the card by CUDA events and by the host clock,
+   the whole upload, and the pageable ``torch.tensor(rgb, device=...)`` it
+   replaced, each in GB/s.
 
 Phases 4-16 and 18 run with the graph cache on, its default: a program's first
 call with a signature runs eagerly, the second runs eagerly once more and
@@ -458,6 +467,8 @@ RESAMPLE_SHAPES = [(*s, "bf16", 0, True) for s in DAV2_RESAMPLES] + [
 )] + [
     (2, 37, 66, 256, 74, 132, "bf16", 1, False),   # a view 2 bytes past 16-byte alignment
 ]
+UPLOAD_SHAPES = ((3024, 4032, 3), (1080, 1920, 3))  # a 12 MP photo, a 1080p frame
+UPLOAD_REPS = 40
 # (keys, head dim, dtype, the K/V path the attention library reports)
 KV_PATH_CASES = [
     (577, 64, "bf16", "resident"),    # Depth Pro's ViTs
@@ -2771,14 +2782,15 @@ def phase_dav2(dev) -> dict:
                      "conv3x3_by_shape": conv,
                      "gelu": sum(launches_by("gelu").values()),
                      "scaled_residual": sum(launches_by("scaled_residual").values()),
-                     "resize_bilinear_by_shape": resample, "mode": aot.cache().modes[-1]})
+                     "resize_bilinear_by_shape": resample, "uploads": launches_by("upload"),
+                     "mode": aot.cache().modes[-1]})
     for r in runs:
         print(f"[20] dav2 inverse_depth_batch x{DAV2_BATCH} {r['mode']}: launches {r['counts']}, "
               f"gelu {r['gelu']}, scaled_residual {r['scaled_residual']}; attention by "
               f"(B, N, H, D, dtype, path) {r['attention_by_shape']}; conv3x3 by shape "
               f"{len(r['conv3x3_by_shape'])} shapes, {sum(r['conv3x3_by_shape'].values())} "
               f"launches; resize_bilinear by (B, H, W, C, out_h, out_w, dtype) "
-              f"{r['resize_bilinear_by_shape']}")
+              f"{r['resize_bilinear_by_shape']}; uploads by path {r['uploads']}")
     modes = [r["mode"] for r in runs]
     require(modes == [(f"dav2_fwd_b{DAV2_BATCH}", m) for m in ("eager", "capture", "replay")],
             f"dav2 forward modes {modes}, expected eager, capture, replay")
@@ -2793,6 +2805,8 @@ def phase_dav2(dev) -> dict:
         require(r["resize_bilinear_by_shape"] == want_resample,
                 f"dav2 resize_bilinear launches by shape {r['resize_bilinear_by_shape']}, "
                 f"expected {want_resample}")
+        require(r["uploads"] == {("pinned",): DAV2_BATCH},
+                f"dav2 uploads by path {r['uploads']}, expected {DAV2_BATCH} pinned")
     require(outs[0].shape == (DAV2_BATCH, h, w) and outs[0].dtype == np.float32,
             f"dav2 inverse depth {outs[0].shape} {outs[0].dtype}, expected "
             f"{(DAV2_BATCH, h, w)} float32")
@@ -2860,6 +2874,80 @@ def phase_resample(dev) -> dict:
     return {"rows": rows}
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Warm host-clock ms a call of fn, the card synchronised after the
+    calls: what the caller waits for the last call's work."""
+    import torch
+
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def upload_row(dev, shape: tuple) -> dict:
+    """``pipeline.upload`` of a seeded u8 photo of ``shape`` against
+    ``torch.tensor(rgb, device=dev)``, bit for bit (contiguous, read-only,
+    a strided view), one count of ("upload", "pinned"); then warm rates in
+    GB/s (see phase 22)."""
+    import numpy as np
+    import torch
+
+    from matrix_eyes_tpu_torch import pipeline
+    from matrix_eyes_tpu_torch.ops import _build
+
+    h, w, c = shape
+    rng = np.random.RandomState(22)
+    rgb = rng.randint(0, 256, shape, dtype=np.uint8)
+    frozen = rgb.copy()
+    frozen.flags.writeable = False
+    strided = rng.randint(0, 256, (h, w + 8, c), dtype=np.uint8)[:, 4:w + 4]
+    same = {}
+    for name, a in (("contiguous", rgb), ("read_only", frozen), ("strided", strided)):
+        _build.reset()
+        got = pipeline.upload(a, dev)
+        counts = dict(_build.launches("upload"))
+        same[name] = bool(torch.equal(got, torch.tensor(a, device=dev)))
+        require(counts == {("pinned",): 1}, f"upload {shape} {name}: counts {counts}")
+    require(all(same.values()), f"pinned upload {shape} differs from torch.tensor: {same}")
+
+    nbytes = rgb.nbytes
+    host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(shape, dtype=torch.uint8, device=dev)
+    host_np = host.numpy()
+    ms = {
+        "stage": _host_ms(lambda: pipeline.stage(rgb, host), UPLOAD_REPS),
+        "stage_torch_openmp": _host_ms(lambda: host.copy_(torch.from_numpy(rgb)), UPLOAD_REPS),
+        "stage_numpy": _host_ms(lambda: host_np.__setitem__(Ellipsis, rgb), UPLOAD_REPS),
+        "dma_events": time_ms(lambda: dst.copy_(host, non_blocking=True), UPLOAD_REPS),
+        "dma_host": _host_ms(lambda: dst.copy_(host, non_blocking=True), UPLOAD_REPS),
+        "upload_host": _host_ms(lambda: pipeline.upload(rgb, dev), UPLOAD_REPS),
+        "upload_events": time_ms(lambda: pipeline.upload(rgb, dev), UPLOAD_REPS),
+        "pageable_host": _host_ms(lambda: torch.tensor(rgb, device=dev), UPLOAD_REPS),
+        "pageable_events": time_ms(lambda: torch.tensor(rgb, device=dev), UPLOAD_REPS),
+    }
+    row = {"shape": list(shape), "bytes": nbytes, "bit_equal": same,
+           "threads": torch.get_num_threads(),
+           "ms": {k: round(v, 4) for k, v in ms.items()},
+           "gb_s": {k: round(nbytes / v / 1e6, 2) for k, v in ms.items()}}
+    print(f"[22] upload {row}")
+    return row
+
+
+def phase_upload(dev) -> dict:
+    """The photo's upload at ``UPLOAD_SHAPES`` (see phase 22). Returns the
+    rows."""
+    import torch
+
+    rows = [upload_row(dev, shape) for shape in UPLOAD_SHAPES]
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -2916,6 +3004,7 @@ def main() -> int:
     vit_elementwise = phase_vit_elementwise(dev)
     by_path["dav2_frames_b8"] = phase_dav2(dev)
     resample = phase_resample(dev)
+    upload = phase_upload(dev)
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "matrix_eyes_tpu")]
     require(not foreign, f"the port imported jax or the JAX package: {foreign[:5]}")
 
@@ -2994,6 +3083,7 @@ def main() -> int:
                     "launches": by_path["dav2_frames_b8"]["resize_bilinear"],
                     "launches_path": "dav2_frames_b8", "rows": resample["rows"]})
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"upload": upload["rows"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Host (C++) libraries of the port: the Lanczos3 RGB8 resizer
 (``lanczos.cpp``), the striped PNG encoder (``pngwriter.cpp``) and the OBJ
 serializer (``meshwriter.cpp``), the port's own copies of the JAX
-package's ``native`` sources.
+package's ``native`` sources, and the photo's staging copy into pinned
+memory (``stagecopy.cpp``), the port's own.
 
 Each builds with ``g++`` on first use into the git-ignored ``_build/``
 directory of the package, beside the CUDA libraries, under a name hashed

@@ -12,7 +12,8 @@ runs at import time: the package imports on a machine without CUDA.
 Every launch that ``check_launch`` passes is counted in one ledger,
 ``ledger``, under (kernel, *key): the key is what the wrapper names the
 launch by (its shapes, dtypes, flags). The mesh's collectives count there
-too (``parallel.collectives``). A CUDA graph's replay runs no wrapper, so
+too (``parallel.collectives``), and each photo's copy to the device under
+its path (``pipeline.upload``). A CUDA graph's replay runs no wrapper, so
 the graph cache (``aot``) adds a capture's counts again at every replay;
 a new wrapper needs no more than its key for its launches to be counted
 however they run. ``launches(kernel)`` reads one kernel's counts by key and
@@ -120,7 +121,8 @@ ledger: collections.Counter = collections.Counter()  # (kernel, *key) -> launche
 
 
 def record(kernel: str, *key) -> None:
-    """Count one launch of ``kernel`` (or one collective) under ``key``."""
+    """Count one launch of ``kernel`` (or one collective, or one upload)
+    under ``key``."""
     ledger[(kernel, *key)] += 1
 
 

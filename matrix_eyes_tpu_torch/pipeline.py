@@ -45,8 +45,10 @@ from matrix_eyes_tpu_torch.io.image import SourceImage, load_source_image
 from matrix_eyes_tpu_torch.progress import SplitProgressListener
 from matrix_eyes_tpu_torch.config import AnyConfig, ModelConfig, RuntimeConfig, configure_precision
 from matrix_eyes_tpu_torch.models import depth_anything, depth_pro
-from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
+from matrix_eyes_tpu_torch.native import stagecopy
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.ops.resize import resize_lanczos3, to_u8
+from matrix_eyes_tpu_torch.parallel.sharding import patch_sharded
 from matrix_eyes_tpu_torch.output.depthmap import (
     DepthMap,
     ImageOutputFormat,
@@ -83,16 +85,61 @@ _PREPROCESS = {ModelConfig.architecture: ("preprocess", _preprocess),
                "depth_anything_v2": ("dav2_preprocess", _preprocess_dav2)}
 
 
+def stage(rgb: np.ndarray, host: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Copy the photo ``rgb`` into ``host``, a CPU tensor of its shape and
+    dtype (None: a pinned block of PyTorch's caching host allocator);
+    returns ``host``. A C-contiguous photo is copied by the native staging
+    copy (``native/stagecopy.cpp``) on the calling thread and up to the
+    process's intra-op thread count less one helpers, which never makes
+    the call wait for a helper to wake; any other layout, or without g++,
+    by numpy on the calling thread. ``rgb`` is only read (a read-only
+    array too) and is the caller's again when this returns."""
+    if host is None:
+        host = torch.empty(rgb.shape, dtype=torch.from_numpy(np.empty(0, rgb.dtype)).dtype,
+                           pin_memory=True)
+    dst = host.numpy()
+    if rgb.flags.c_contiguous and stagecopy.available():
+        stagecopy.copy(rgb, dst, torch.get_num_threads())
+    else:
+        np.copyto(dst, rgb)
+    return host
+
+
+def upload(rgb_u8, device) -> torch.Tensor:
+    """The photo on ``device``, by one of three paths, each counted as
+    ``("upload", path)`` in the launch ledger and named with the photo's
+    bytes on the span ``pipeline.upload``: ``device``, a tensor (the
+    server's upload), moved by ``.to`` should it lie elsewhere; ``pinned``,
+    a host array bound for a CUDA device: ``stage``d into pinned memory,
+    then copied on the current stream with no synchronisation, so the copy
+    overlaps the card's work already queued (a batch's previous photo) and
+    device memory stays ordered on that stream; the allocator hands the
+    pinned block out again only once the copy has finished; ``host``, a
+    host array bound for the CPU: a copy."""
+    if isinstance(rgb_u8, torch.Tensor):
+        rgb, path = rgb_u8, "device"
+    else:
+        rgb = np.asarray(rgb_u8)
+        path = "pinned" if torch.device(device).type == "cuda" else "host"
+    with timings.trace("pipeline.upload", {"path": path, "bytes": rgb.nbytes}):
+        if path == "device":
+            x = rgb.to(device)
+        elif path == "host":
+            x = torch.tensor(rgb, device=device)
+        else:
+            x = stage(rgb).to(device, non_blocking=True)
+    _build.record("upload", path)
+    return x
+
+
 def preprocess_image(rgb_u8: np.ndarray, model, dtype: torch.dtype, device) -> torch.Tensor:
     """The model's input of one photo, ``rgb_u8``: (H, W, 3) u8, numpy or
     a tensor already on ``device`` (the server's upload). ``model``: the
     configuration, which sizes the input (``input_hw``) and names its
     program, or an int, the side of Depth Pro's square input (the JAX
     package's ``img_size``). Returns (1, h, w, 3) NHWC. The photo's copy to
-    the device (the span ``pipeline.upload``) runs before the program."""
-    with timings.trace("pipeline.upload"):
-        x = rgb_u8 if isinstance(rgb_u8, torch.Tensor) else torch.tensor(rgb_u8, device=device)
-        x = x.to(device)
+    the device (``upload``) is enqueued before the program."""
+    x = upload(rgb_u8, device)
     if isinstance(model, int):
         arch, size = ModelConfig.architecture, (model, model)
     else:

@@ -1,10 +1,13 @@
 """The PyTorch port's preprocess, depth-map output, pipeline and CLI against
 the JAX package."""
 
+import collections
 import io
 import os
 import subprocess
 import sys
+import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -19,13 +22,16 @@ from matrix_eyes_tpu.output import depthmap as jdepthmap
 from matrix_eyes_tpu.output import png as jpng
 from matrix_eyes_tpu.pipeline import preprocess_image as j_preprocess
 from matrix_eyes_tpu_torch import cli as tcli
+from matrix_eyes_tpu_torch import native, timings
 from matrix_eyes_tpu_torch.config import TINY, RuntimeConfig
 from matrix_eyes_tpu_torch.errors import ReconstructionError
 from matrix_eyes_tpu_torch.io.image import SourceImage
 from matrix_eyes_tpu_torch.models.init import init_params
+from matrix_eyes_tpu_torch.native import stagecopy
+from matrix_eyes_tpu_torch.ops import _build
 from matrix_eyes_tpu_torch.output import depthmap as tdepthmap
 from matrix_eyes_tpu_torch.output import png as tpng
-from matrix_eyes_tpu_torch.pipeline import extract_depth, preprocess_image
+from matrix_eyes_tpu_torch.pipeline import extract_depth, preprocess_image, stage
 
 import torch_ref
 
@@ -48,6 +54,104 @@ def test_preprocess_matches_jax():
     diff = np.abs(_u8_counts(got.numpy()) - want)
     assert diff.max() <= 1
     assert (diff > 0).mean() <= 1e-4
+
+
+def _photo(kind: str) -> np.ndarray:
+    """A seeded (40, 56, 3) u8 photo: contiguous, a strided view of a wider
+    array, read-only (as ``np.asarray`` gives a decoded PIL image), or a
+    view with a negative stride."""
+    rng = np.random.RandomState(5)
+    if kind == "strided":
+        return rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)[:, 3:59]
+    rgb = rng.randint(0, 256, (40, 56, 3), dtype=np.uint8)
+    if kind == "read_only":
+        rgb.flags.writeable = False
+    return rgb[::-1] if kind == "reversed" else rgb
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "strided", "read_only", "reversed"])
+def test_stage_copies_the_pixels(kind):
+    # the staging helper, given an ordinary host buffer where the card's
+    # path gives a pinned one: the caller's pixels bit for bit, no warning
+    # (torch.from_numpy warns of a read-only array), the array unchanged
+    rgb = _photo(kind)
+    want = rgb.copy()
+    host = torch.empty(rgb.shape, dtype=torch.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = stage(rgb, host)
+    assert got is host
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(rgb, want)
+
+
+def test_native_stage_copy_builds_and_checks_its_arguments():
+    assert stagecopy.available()
+    assert os.path.dirname(stagecopy._lib._name) == native.BUILD_DIR
+    rgb = _photo("contiguous")
+    with pytest.raises(ValueError):
+        stagecopy.copy(rgb, np.empty(rgb.nbytes + 1, np.uint8), 2)
+    with pytest.raises(ValueError):
+        stagecopy.copy(_photo("strided"), np.empty(rgb.shape, np.uint8), 2)
+    out = np.empty(rgb.nbytes, np.uint8)
+    stagecopy.copy(rgb, out, 2)
+    np.testing.assert_array_equal(out, rgb.reshape(-1))
+
+
+def test_stage_from_many_threads_at_once():
+    # callers on more threads than cores share the native copy's helper
+    # pool: each call returns its own pixels whole, whoever copied them
+    errors, switch = [], sys.getswitchinterval()
+
+    def work(seed):
+        rng = np.random.RandomState(seed)
+        for _ in range(20):
+            rgb = rng.randint(0, 256, (rng.randint(1, 1500), 640, 3), dtype=np.uint8)
+            got = stage(rgb, torch.empty(rgb.shape, dtype=torch.uint8))
+            if not np.array_equal(got.numpy(), rgb):
+                errors.append(seed)
+
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(seed,))
+                   for seed in range(2 * (os.cpu_count() or 1) + 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+
+
+@pytest.mark.parametrize("entry", ["stage", "preprocess_image"])
+def test_caller_may_overwrite_its_photo_after_the_call(entry):
+    rgb = _photo("contiguous")
+    keep = rgb.copy()
+    if entry == "stage":
+        got = stage(rgb, torch.empty(rgb.shape, dtype=torch.uint8))
+        want = torch.from_numpy(keep)
+    else:
+        got = preprocess_image(rgb, 128, torch.float32, "cpu")
+        want = preprocess_image(keep, 128, torch.float32, "cpu")
+    rgb[...] = 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("given, path", [("numpy", "host"), ("tensor", "device")])
+def test_upload_counts_its_path(given, path, monkeypatch):
+    # one count of ("upload", path) in the launch ledger a photo, and the
+    # span pipeline.upload naming the path and the photo's bytes
+    monkeypatch.setenv("MATRIX_EYES_TIMINGS", "1")
+    timings.clear()
+    rgb = _photo("contiguous")
+    before = collections.Counter(_build.launches("upload"))
+    preprocess_image(rgb if given == "numpy" else torch.from_numpy(rgb), 128, torch.float32,
+                     "cpu")
+    assert _build.launches("upload") - before == collections.Counter({(path,): 1})
+    spans = [s for s in timings.recorded() if s.name == "pipeline.upload"]
+    assert [s.attrs for s in spans] == [{"path": path, "bytes": rgb.nbytes}]
 
 
 @pytest.mark.parametrize("kind", ["random", "constant"])
@@ -213,7 +317,8 @@ def test_port_imports_no_jax():
             "for name in ('cli', 'api', 'timings', 'output.png', 'output.mesh',\n"
             "             'output.writers', 'output.rust_format', 'errors', 'progress',\n"
             "             'io.image', 'ops.viridis_data', 'native.lanczos',\n"
-            "             'native.pngwriter', 'native.meshwriter', 'ops.quant', 'ops.mixed',\n"
+            "             'native.pngwriter', 'native.meshwriter', 'native.stagecopy',\n"
+            "             'ops.quant', 'ops.mixed',\n"
             "             'serve', 'pt.loader', 'debug', 'parallel.sharding',\n"
             "             'parallel.collectives', 'parallel.launch', 'parallel.checks',\n"
             "             'aot', 'flops', 'ops.prng'):\n"
